@@ -1,0 +1,78 @@
+"""Carry the reference package's state into the port.
+
+Sparse PCA has no learned weights: what makes the two packages compute
+the same thing is the same configuration and the same numeric state (the
+variance screen, the reduced covariance, a warm start, a fitted
+component).  These helpers take that state as the reference produces it
+— its ``SPCAConfig`` as ``dataclasses.asdict``, numpy arrays, a
+``PCResult`` as a dict — and return the port's objects, without importing
+the reference.
+"""
+from __future__ import annotations
+
+from dataclasses import fields
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .core.spca import PCResult, SPCAConfig
+from .device import as_tensor
+
+_CFG_FIELDS = {f.name for f in fields(SPCAConfig)}
+_PC_FIELDS = {f.name for f in fields(PCResult)}
+
+
+class ReferenceState(NamedTuple):
+    cfg: SPCAConfig
+    variances: np.ndarray | None      # host array, as the driver takes it
+    Sigma_hat: torch.Tensor | None
+    X0: torch.Tensor | None
+
+
+def config_from_reference(cfg_fields: dict) -> SPCAConfig:
+    """The port's `SPCAConfig` from the reference's fields (every field
+    name is shared; an unknown name raises)."""
+    unknown = set(cfg_fields) - _CFG_FIELDS
+    if unknown:
+        raise TypeError(f"not SPCAConfig fields: {sorted(unknown)}")
+    kw = dict(cfg_fields)
+    if "support_buckets" in kw:
+        kw["support_buckets"] = tuple(kw["support_buckets"])
+    return SPCAConfig(**kw)
+
+
+def from_reference(cfg_fields: dict, *, variances=None, Sigma_hat=None,
+                   X0=None, device=None) -> ReferenceState:
+    """The reference's config dict and numpy state as the port's
+    `SPCAConfig` and tensors on ``device`` (the card by default; only
+    resolved when there is an array to place)."""
+    return ReferenceState(
+        cfg=config_from_reference(cfg_fields),
+        variances=None if variances is None else np.asarray(variances),
+        Sigma_hat=None if Sigma_hat is None else as_tensor(
+            np.asarray(Sigma_hat), device),
+        X0=None if X0 is None else as_tensor(np.asarray(X0), device),
+    )
+
+
+def pc_result_from_reference(pc_fields: dict, *, device=None) -> PCResult:
+    """A reference ``PCResult`` (``dataclasses.asdict`` or the fit
+    checkpoint's packed dict) as the port's: host arrays stay numpy, the
+    reduced solver state (``X_reduced``, ``Sigma_reduced``) becomes tensors
+    on ``device``."""
+    unknown = set(pc_fields) - _PC_FIELDS
+    if unknown:
+        raise TypeError(f"not PCResult fields: {sorted(unknown)}")
+    d = dict(pc_fields)
+    for name in ("X_reduced", "Sigma_reduced"):
+        if d.get(name) is not None:
+            d[name] = as_tensor(np.asarray(d[name]), device)
+    if d.get("reduced_support") is not None:
+        d["reduced_support"] = np.asarray(d["reduced_support"], np.int64)
+    return PCResult(
+        **{**d, "x": np.asarray(d["x"]),
+           "support": np.asarray(d["support"], np.int64),
+           "lam": float(d["lam"]), "variance": float(d["variance"]),
+           "cardinality": int(d["cardinality"]),
+           "reduced_n": int(d["reduced_n"]), "gap": float(d["gap"])})

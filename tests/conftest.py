@@ -25,6 +25,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: heavy corpus/serve test, deselected by default"
     )
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card (CUDA); skips without one"
+    )
 
 
 def pytest_collection_modifyitems(config, items):
