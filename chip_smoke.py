@@ -3,18 +3,27 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version on the same inputs, drives the
-dense sparse-PCA fit (``repro_torch.launch.spca_run``) at NYTimes width
-(102,660 words, 30,000 docs, 5 components, target cardinality 5),
-checks its supports against the reference record in
-``src/repro_torch/data/reference/spca_run_nytimes.json``, holds the
-kernel to its plain version again at every shape the fits launched it
-with, and runs the batched solve at NYTimes' and PubMed's largest
-reduced sizes.  Each phase prints one
-JSON line; a failed check raises, so the script exits non-zero.  The
-last lines are the kernel table, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+Builds the port's three CUDA kernels from the sources in this checkout
+(K1 ``bcd_fused``, K2 ``csr_stats``, K3 ``csr_gram``; one ``nvcc`` each,
+all started together), holds each against its plain PyTorch version on
+the same inputs, and drives both fits of ``repro_torch.launch.spca_run``
+at NYTimes width (102,660 words, 5 components, target cardinality 5):
+
+* the dense fit at 30,000 docs, against the reference record in
+  ``src/repro_torch/data/reference/spca_run_nytimes.json``; K1 is held
+  to its plain version again at every shape the fits launched it with,
+  and the batched solve runs at NYTimes' and PubMed's largest reduced
+  sizes;
+* the out-of-core fit (``--streaming``) at the paper's 300,000 docs,
+  from a CSR store in a temporary directory (removed at the end),
+  against ``spca_run_nytimes_streaming.json``; K2 and K3 are held to
+  their plain versions on real megabatches of that store, both corpus
+  passes are held to exact float64 statistics of the corpus, and both
+  kernels are timed at the fit's shape beside their bounds.
+
+Each phase prints one JSON line; a failed check raises, so the script
+exits non-zero.  The last lines are the kernel table, the card's name
+and power limit, and ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -23,6 +32,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -31,6 +41,10 @@ H100_F64_FLOPS = 34e12          # float64 outside the tensor cores, SXM data she
 H100_BYTES_PER_S = 3.35e12      # HBM3, SXM data sheet
 FIT_ARGS = ["--corpus", "nytimes", "--docs", "30000", "--components", "5",
             "--target-card", "5"]
+STREAM_ARGS = ["--streaming", "--corpus", "nytimes", "--docs", "300000",
+               "--components", "5", "--target-card", "5", "--device", "cuda"]
+KERNELS = ("bcd_fused", "csr_stats", "csr_gram")
+CHUNK_ROWS, MEGABATCH = 512, 8   # the launcher's default pass geometry
 
 
 def emit(phase, **kw):
@@ -91,16 +105,17 @@ def phase_env():
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    built = _build.build(["bcd_fused"])
+    built = _build.build(KERNELS)
     wall = time.perf_counter() - t0
-    log = os.path.join(_build.BUILD_DIR, "bcd_fused.log")
-    ptxas = []
-    if os.path.exists(log):
-        ptxas = [ln.strip() for ln in open(log)
-                 if "registers" in ln or "spill" in ln]
+    ptxas = {}
+    for name in KERNELS:
+        log = os.path.join(_build.BUILD_DIR, f"{name}.log")
+        if os.path.exists(log):
+            ptxas[name] = [ln.strip() for ln in open(log)
+                           if "registers" in ln or "spill" in ln]
     emit("env", nvidia_smi=nvidia_smi(), torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
-         build_s=round(wall, 3), built=sorted(built), ptxas=ptxas)
+         build_s=round(wall, 3), built=built, ptxas=ptxas)
 
 
 def _supports(X, sizes):
@@ -388,11 +403,26 @@ def phase_fit_jnp(record, corpus):
           "solver_impl='jnp' fit's supports differ from the record")
 
 
+def _device_events(prof):
+    """(ms, count, name) of each device event kind in a torch.profiler
+    run, largest first: kernels, copies, memsets."""
+    import torch
+
+    out = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        out.append((us / 1e3, e.count, e.key[:90]))
+    return sorted(out, reverse=True)
+
+
 def phase_profile(corpus):
     """Where the fit's time goes: the default fit under torch.profiler,
     device time by kernel and the device's busy share of the fit's wall
     time (host clock, profiler on)."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -400,15 +430,7 @@ def phase_profile(corpus):
         t0 = time.perf_counter()
         _fit_direct(corpus, "auto")
         wall = time.perf_counter() - t0
-    kernels = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        kernels.append((us / 1e3, e.count, e.key[:90]))
-    kernels.sort(reverse=True)
+    kernels = _device_events(prof)
     busy_ms = sum(k[0] for k in kernels)
     emit("profile", fit_wall_s=wall, device_busy_ms=busy_ms,
          device_busy_share=busy_ms / 1e3 / wall,
@@ -575,6 +597,359 @@ def phase_timing(corpus, results):
     emit("timing", **row)
     check(ok, "timing: kernel and plain version disagree at the fit shape")
     return row
+# ---------------------------------------------------------------- streaming
+
+
+def _rel_err(got, want):
+    """max |got - want| over max |want|, both moved to float64."""
+    import torch
+
+    got, want = (torch.as_tensor(x).double().cpu() for x in (got, want))
+    if not want.numel():
+        return 0.0
+    scale = max(float(want.abs().max()), 1e-300)
+    return float((got - want).abs().max()) / scale
+
+
+def phase_fit_streaming(record, store_dir):
+    """The out-of-core fit through the launcher (``--streaming``) at
+    300,000 docs, with every kernel count set to 0 just before and read
+    just after; held to the streaming record: identical supports, 2
+    corpus passes, the record's screen and Gram launches, each one K2 or
+    K3 launch."""
+    from repro_torch.kernels import bcd_fused, csr_gram, csr_stats
+    from repro_torch.launch import spca_run
+    from repro_torch.obs import metrics
+
+    with metrics.use_registry() as reg:
+        for k in (bcd_fused, csr_stats, csr_gram):
+            k.reset_launches()
+        t0 = time.perf_counter()
+        corpus, results, diag = spca_run.main(STREAM_ARGS + ["--store-dir",
+                                                             store_dir])
+        wall = time.perf_counter() - t0
+        counts = {
+            "csr_stats": csr_stats.launches, "csr_gram": csr_gram.launches,
+            "bcd_fused": bcd_fused.launches,
+            **{f"kernel.launches.{op}": reg.value(f"kernel.launches.{op}")
+               for op in ("csr_column_stats", "csr_gram_batched",
+                          "bcd_solve", "bcd_solve_batched")},
+            "ingest.prefetch.consumer_stall_s":
+                reg.value("ingest.prefetch.consumer_stall_s"),
+            "ingest.prefetch.producer_stall_s":
+                reg.value("ingest.prefetch.producer_stall_s"),
+        }
+    ing, rec = diag["ingest"], record["ingest"]
+    emit("fit_streaming", seconds=wall, pcs=_pc_lines(corpus, results),
+         components=_vs_record(results, record["fit"]),
+         corpus_passes=diag["corpus_passes"], ingest=ing,
+         record_ingest=rec, solve_launches=diag["solve_launches"],
+         solver_fallbacks=diag.get("solver_fallbacks", 0), **counts)
+    check(_same_supports(results, record["fit"]),
+          "streaming fit's supports differ from the streaming record")
+    check(diag["corpus_passes"] == 2 == rec["corpus_passes"],
+          "streaming fit did not take 2 corpus passes")
+    check(ing["screen_launches"] == rec["screen_launches"]
+          and ing["gram_launches"] == rec["gram_launches"]
+          and ing["chunks"] == rec["chunks"],
+          "streaming fit's ingest launches differ from the record's")
+    check(counts["kernel.launches.csr_column_stats"] == ing["screen_launches"]
+          == counts["csr_stats"],
+          "screen megabatches != K2 launches")
+    check(counts["kernel.launches.csr_gram_batched"] == ing["gram_launches"]
+          == counts["csr_gram"],
+          "Gram megabatches != K3 launches")
+    check(counts["bcd_fused"] >= diag["solve_launches"] > 0,
+          "the streaming fit's solves did not launch K1")
+    return corpus, counts
+
+
+def _batches(store):
+    """The first and the ragged final megabatch of a pass, copied out."""
+    import numpy as np
+
+    first = last = None
+    for mb in store.iter_megabatches(reuse_buffers=False):
+        if first is None:
+            first = mb
+        last = mb
+    check(last.n_chunks < len(last.nnz), "the final megabatch is not ragged")
+    return {"first": first, "last": last,
+            "chunks": [int(first.n_chunks), int(last.n_chunks)],
+            "empty_slots": int(np.sum(last.n_rows == 0))}
+
+
+def _csr_supports(v, cfg):
+    """The fit's union support (the one Gram pass's, from the launcher's
+    config) and the top-500 / top-2048 variance supports."""
+    import numpy as np
+
+    from repro_torch.core import spca
+
+    order = np.argsort(-v, kind="stable")
+    return {"union": spca._union_base_support(v, 5, 5, cfg),
+            "top500": np.sort(order[:500]), "top2048": np.sort(order[:2048])}
+
+
+def phase_csr_kernel_parity(store, supports):
+    """K2 and K3 against their plain versions on the card, on the first
+    and the ragged final megabatch of the 300k store: K2 to 1e-6 of the
+    largest |sum|, K3 to 1e-6 of the largest |G|, at the fit's union
+    support and the top-500 / top-2048 variance supports, and one C = 1
+    ``ops.csr_gram`` call.  Each kernel also runs twice on the same
+    megabatch; the run-to-run max |diff| is printed."""
+    import torch
+
+    from repro_torch.data.bow import local_support_cols
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    mbs = _batches(store)
+    worst = {"csr_stats": 0.0, "csr_gram": 0.0}
+    rerun = {"csr_stats": 0.0, "csr_gram": 0.0}
+    n = store.n_cols
+    for label in ("first", "last"):
+        mb = mbs[label]
+        v, c, sg = (torch.from_numpy(a).to(dev) for a in
+                    (mb.values, mb.col_ids, mb.seg_ids))
+        got = ops.csr_column_stats(v, c, n=n, impl="cuda")
+        again = ops.csr_column_stats(v, c, n=n, impl="cuda")
+        want = ops.csr_column_stats(v, c, n=n, impl="ref")
+        errs = [_rel_err(g, w) for g, w in zip(got, want)]
+        diff = max(float((a - b).abs().max()) for a, b in zip(got, again))
+        emit("csr_kernel_parity", kernel="csr_stats", batch=label,
+             chunks=int(mb.n_chunks), n=n, rel_err=errs,
+             max_abs_err=max(float((g - w).abs().max())
+                             for g, w in zip(got, want)),
+             run_to_run_max_abs_diff=diff, tolerance="1e-6 of max |sum|",
+             ok=max(errs) <= 1e-6)
+        check(max(errs) <= 1e-6, f"csr_stats parity on the {label} batch")
+        worst["csr_stats"] = max(worst["csr_stats"], max(
+            float((g - w).abs().max()) for g, w in zip(got, want)))
+        rerun["csr_stats"] = max(rerun["csr_stats"], diff)
+        for name, sup in supports.items():
+            loc = torch.from_numpy(local_support_cols(sup, mb.col_ids)).to(dev)
+            kw = dict(n_rows=CHUNK_ROWS, n_hat=int(sup.size))
+            G = ops.csr_gram_batched(v, loc, sg, impl="cuda", **kw)
+            G2 = ops.csr_gram_batched(v, loc, sg, impl="cuda", **kw)
+            Gr = ops.csr_gram_batched(v, loc, sg, impl="ref", **kw)
+            err = _rel_err(G, Gr)
+            diff = float((G - G2).abs().max())
+            abs_err = float((G - Gr).abs().max())
+            emit("csr_kernel_parity", kernel="csr_gram", batch=label,
+                 support=name, n_hat=int(sup.size), rel_err=err,
+                 max_abs_err=abs_err, max_abs_G=float(Gr.abs().max()),
+                 run_to_run_max_abs_diff=diff, symmetric=bool(
+                     torch.equal(G, G.T)),
+                 tolerance="1e-6 of max |G|", ok=err <= 1e-6)
+            check(err <= 1e-6, f"csr_gram parity {label} {name}")
+            worst["csr_gram"] = max(worst["csr_gram"], abs_err)
+            rerun["csr_gram"] = max(rerun["csr_gram"], diff)
+            if label == "first" and name == "union":
+                # the single-chunk op (TPU kernel _kernel) at C = 1
+                one = ops.csr_gram(v[0], loc[0], sg[0], impl="cuda", **kw)
+                one_r = ops.csr_gram(v[0], loc[0], sg[0], impl="ref", **kw)
+                err1 = _rel_err(one, one_r)
+                emit("csr_kernel_parity", kernel="csr_gram", batch=label,
+                     support=name, C=1, n_hat=int(sup.size), rel_err=err1,
+                     max_abs_err=float((one - one_r).abs().max()),
+                     tolerance="1e-6 of max |G|", ok=err1 <= 1e-6)
+                check(err1 <= 1e-6, "csr_gram C=1 parity")
+                worst["csr_gram"] = max(worst["csr_gram"],
+                                        float((one - one_r).abs().max()))
+    emit("csr_kernel_parity", summary=True, batches=mbs["chunks"],
+         empty_slots_in_final=mbs["empty_slots"], max_abs_err=worst,
+         run_to_run_max_abs_diff=rerun)
+    return worst, rerun, mbs["first"]
+
+
+def phase_ingest_passes(corpus, store, support, exact):
+    """The screen pass and the union-support Gram pass over the whole 300k
+    store through K2 and K3, held to exact float64 statistics of the
+    corpus (``column_stats_exact``; ``columns_dense`` and a float64
+    product).  Tolerance, derived: each per-megabatch float32 sum rounds
+    by at most 2^-24 of the sum of its terms' magnitudes (it is exact
+    here, the counts being integers below 2^24); the float64 (or
+    compensated float32) fold adds ~nothing; the centring cancels, so
+    the error relative to the largest result grows by ``cancel`` =
+    max second moment / max |result|: tolerance = 4 * 2^-24 * cancel.
+    Both the float64 accumulation and the launcher's float32 (x64 off
+    in the reference) are held.  Then the pass seconds (no profiler),
+    the device's idle share over each pass (torch.profiler), and the
+    host's own work per pass: reading and padding the megabatches, and
+    mapping their columns onto the support."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.bow import local_support_cols
+    from repro_torch.sparse import engine
+
+    dev = torch.device("cuda")
+    m = corpus.n_docs
+    mean_x, var_x = exact
+    A = torch.from_numpy(corpus.columns_dense(support)).to(dev).double()
+    second = (A.T @ A) / m
+    A -= A.mean(0)
+    S_x = (A.T @ A) / m
+    del A
+    sec2 = np.bincount(corpus.word_idx, minlength=corpus.n_words,
+                       weights=corpus.counts.astype(np.float64) ** 2)
+    cancel_v = float(sec2.max() / m / var_x.max())
+    cancel_S = float(second.abs().max() / S_x.abs().max())
+    out = {}
+    for acc in (torch.float64, torch.float32):
+        name = str(acc).split(".")[-1]
+        ctr = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scr = engine.sparse_feature_variances(store, counters=ctr,
+                                              acc_dtype=acc, device=dev)
+        torch.cuda.synchronize()
+        t_screen = time.perf_counter() - t0
+        means = scr.means.cpu().numpy()
+        t0 = time.perf_counter()
+        S = engine.sparse_reduced_covariance(store, support, means=means,
+                                             counters=ctr, acc_dtype=acc,
+                                             device=dev)
+        torch.cuda.synchronize()
+        t_gram = time.perf_counter() - t0
+        e_var = _rel_err(scr.variances, var_x)
+        e_mean = _rel_err(scr.means, mean_x)
+        e_S = _rel_err(S, S_x)
+        tol_v, tol_S = 4 * 2.0 ** -24 * cancel_v, 4 * 2.0 ** -24 * cancel_S
+        ok = e_var <= tol_v and e_mean <= tol_v and e_S <= tol_S
+        emit("ingest_passes", acc_dtype=name, screen_s=t_screen,
+             gram_s=t_gram, n_hat=int(support.size),
+             screen_megabatches=ctr["screen_launches"],
+             gram_megabatches=ctr["gram_launches"], chunks=ctr["chunks"],
+             prefetch_consumer_stall_s=ctr.get("prefetch_consumer_stall_s"),
+             prefetch_producer_stall_s=ctr.get("prefetch_producer_stall_s"),
+             rel_err_var=e_var, rel_err_mean=e_mean, rel_err_sigma=e_S,
+             tolerance_var=tol_v, tolerance_sigma=tol_S, ok=ok)
+        check(ok, f"ingest passes ({name}) disagree with the exact statistics")
+        check(ctr["screen_launches"] == ctr["gram_launches"]
+              == -(-store.n_chunks() // MEGABATCH),
+              "one launch per megabatch")
+        out[name] = {"screen_s": t_screen, "gram_s": t_gram}
+    # the device's idle share over each pass (launcher's float32)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for kind in ("screen", "gram"):
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            if kind == "screen":
+                engine.sparse_feature_variances(store, device=dev)
+            else:
+                engine.sparse_reduced_covariance(store, support,
+                                                 means=mean_x, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = sum(k[0] for k in _device_events(prof))
+        out[f"{kind}_profiled_s"] = wall
+        out[f"{kind}_device_busy_ms"] = busy
+        out[f"{kind}_idle_share"] = 1 - busy / 1e3 / wall
+    # host work alone: read + pad every megabatch; map columns to support
+    t0 = time.perf_counter()
+    n_mb = 0
+    map_s = 0.0
+    for mb in store.iter_megabatches():
+        t1 = time.perf_counter()
+        local_support_cols(support, mb.col_ids)
+        map_s += time.perf_counter() - t1
+        n_mb += 1
+    out["host_read_pad_s"] = time.perf_counter() - t0 - map_s
+    out["host_support_map_s"] = map_s
+    out["megabatches"] = n_mb
+    emit("ingest_passes", where_the_time_goes=out)
+    return out
+
+
+def _gram_timing(name, v, loc, sg, R, n_hat):
+    """K3 at (C, E) = v.shape: ms, plain ms, the library's contraction of
+    the already densified B (TF32 off), and the bound from this data."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import csr_gram, ref
+
+    C, E = v.shape
+    one = C == 1
+    args = (v[0], loc[0], sg[0]) if one else (v, loc, sg)
+    plain_fn = ref.csr_gram_ref if one else ref.csr_gram_batched_ref
+    ms = cuda_ms(lambda: csr_gram.csr_gram_cuda(*args, R, n_hat), 50)
+    plain = cuda_ms(lambda: plain_fn(*args, R, n_hat), 10)
+    rows = (sg.long() + R * torch.arange(C, device=v.device)[:, None]
+            ).reshape(-1)
+    on = (loc.reshape(-1) < n_hat) & (v.reshape(-1) != 0)
+    B = torch.zeros((C * R, n_hat), device=v.device)
+    B.index_put_((rows[on], loc.reshape(-1)[on].long()), v.reshape(-1)[on],
+                 accumulate=True)
+    with ref.full_fp32():
+        lib = cuda_ms(lambda: torch.matmul(B.T, B), 50)
+    k_r = torch.bincount(rows[on], minlength=C * R).cpu().numpy()
+    nbytes = 3 * C * E * 4 + n_hat * n_hat * 4
+    ops = int(2 * np.sum(k_r.astype(np.int64) ** 2))
+    dense_ops = 2 * C * R * n_hat * n_hat
+    tb, to = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_FLOPS * 1e3
+    return {"name": name, "C": C, "ms": ms, "plain_ms": plain,
+            "library_ms": lib,
+            "library": "torch.matmul(B.T, B), TF32 off: contraction only",
+            "bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "bytes": nbytes, "ops": ops, "dense_contraction_ops": dense_ops,
+            "dense_bound_ms": max(tb, dense_ops / H100_F32_FLOPS * 1e3),
+            "n_hat": n_hat}
+
+
+def phase_csr_timing(store, support, mb):
+    """K2 and K3 at the streaming fit's shape (C = 8, E = 16,384, n =
+    102,660; K3 at the union support, and at C = 1 on the batch's first
+    chunk), on the first megabatch: ms per launch (CUDA events, 50
+    launches), the plain version's ms, the library call's ms (K2: two
+    ``index_add_``; K3: ``torch.matmul`` of the already densified B,
+    TF32 off, the contraction only) and the bound: the larger of bytes
+    over 3.35 TB/s and operations over 67 TFLOP/s, counted from this
+    batch's data (real entries; K3 the sparse product's multiply-adds,
+    2 sum_r k_r^2 with k_r the row's on-support entries)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.bow import local_support_cols
+    from repro_torch.kernels import csr_stats, ref
+
+    dev = torch.device("cuda")
+    C, E = mb.values.shape
+    n, R, n_hat = store.n_cols, CHUNK_ROWS, int(support.size)
+    v, c, sg = (torch.from_numpy(a).to(dev) for a in
+                (mb.values, mb.col_ids, mb.seg_ids))
+    loc_np = local_support_cols(support, mb.col_ids)
+    loc = torch.from_numpy(loc_np).to(dev)
+    real = int(np.sum(mb.nnz))
+    rows = []
+    # K2
+    ms = cuda_ms(lambda: csr_stats.csr_column_stats_cuda(v, c, n), 50)
+    plain = cuda_ms(lambda: ref.csr_column_stats_batched_ref(v, c, n), 10)
+    c64, vf = c.reshape(-1).long(), v.reshape(-1)
+
+    def library():
+        torch.zeros(n, device=dev).index_add_(0, c64, vf)
+        torch.zeros(n, device=dev).index_add_(0, c64, vf * vf)
+    lib = cuda_ms(library, 50)
+    nbytes, ops = C * E * 8 + 2 * n * 4, 3 * real
+    tb, to = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_FLOPS * 1e3
+    rows.append({"name": "csr_stats", "ms": ms, "plain_ms": plain,
+                 "library_ms": lib, "library": "2 x index_add_ (float32)",
+                 "bound_ms": max(tb, to),
+                 "bound_by": "bytes" if tb >= to else "operations",
+                 "bytes": nbytes, "ops": ops, "real_entries": real})
+    # K3 on the megabatch (TPU kernel _batched_kernel) and on its first
+    # chunk alone (C = 1: TPU kernel _kernel)
+    rows.append(_gram_timing("csr_gram", v, loc, sg, R, n_hat))
+    rows.append(_gram_timing("csr_gram_c1", v[:1], loc[:1], sg[:1], R,
+                             n_hat))
+    for row in rows:
+        emit("timing", **{"C": C, "E": E, "n": n, "R": R, **row})
+    return {r["name"]: r for r in rows}
 
 
 def main():
@@ -590,10 +965,13 @@ def main():
               "from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, src)
-    record = json.load(open(os.path.join(
-        src, "repro_torch", "data", "reference", "spca_run_nytimes.json")))
+    ref_dir = os.path.join(src, "repro_torch", "data", "reference")
+    record = json.load(open(os.path.join(ref_dir, "spca_run_nytimes.json")))
+    srecord = json.load(open(os.path.join(
+        ref_dir, "spca_run_nytimes_streaming.json")))
 
     phase_env()
+    # slice (a): the dense fit and K1
     worst, chaotic_dX = phase_kernel_parity()
     corpus, results, fit_counts, shapes = phase_fit(record)
     phase_fit_jnp(record, corpus)
@@ -606,6 +984,25 @@ def main():
     row = phase_timing(corpus, results)
     worst["float32"] = max(worst["float32"], row["max_abs_dX"])
     phase_profile(corpus)
+    del corpus
+    # slice (b): the out-of-core fit and K2, K3
+    import numpy as np
+
+    from repro_torch.core import SPCAConfig
+    from repro_torch.sparse import SparseCorpus
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as store_dir:
+        s_corpus, s_counts = phase_fit_streaming(srecord, store_dir)
+        store = SparseCorpus.open(store_dir)
+        exact = s_corpus.column_stats_exact()
+        sups = _csr_supports(exact[1].astype(np.float32),
+                             SPCAConfig(max_sweeps=8, lam_search_evals=8))
+        check(sups["union"].size == srecord["ingest"]["gram_pass_n_hat"][0],
+              "the union support differs from the record's Gram pass")
+        csr_worst, csr_rerun, first_mb = phase_csr_kernel_parity(store, sups)
+        phase_ingest_passes(s_corpus, store, sups["union"], exact)
+        trow = phase_csr_timing(store, sups["union"], first_mb)
+        del store
     kernels = [{
         "name": "bcd_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bcd_fused.cu",
@@ -616,9 +1013,26 @@ def main():
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": None,
     }]
-    emit("kernels", table=[{
-        **kernels[0], "replaces_also": "src/repro/kernels/bcd_fused.py:197",
-        "max_abs_err_by_dtype": worst, "chaotic_case_max_abs_dX": chaotic_dX}])
+    for name, replaces in (("csr_stats", "src/repro/kernels/csr_stats.py:43"),
+                           ("csr_gram", "src/repro/kernels/csr_gram.py:53")):
+        t = trow[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": s_counts[name],
+            "max_abs_err": csr_worst[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    emit("kernels", table=[
+        {**kernels[0], "replaces_also": "src/repro/kernels/bcd_fused.py:197",
+         "max_abs_err_by_dtype": worst, "chaotic_case_max_abs_dX": chaotic_dX},
+        {**kernels[1], "run_to_run_max_abs_diff": csr_rerun["csr_stats"],
+         "library": trow["csr_stats"]["library"]},
+        {**kernels[2], "replaces_also": "src/repro/kernels/csr_gram.py:126",
+         "run_to_run_max_abs_diff": csr_rerun["csr_gram"],
+         "library": trow["csr_gram"]["library"],
+         "single_chunk": {k: trow["csr_gram_c1"][k] for k in (
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}])
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

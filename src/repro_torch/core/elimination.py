@@ -33,6 +33,34 @@ def feature_variances(A: torch.Tensor, *, center: bool = True) -> Screen:
     return Screen(variances=torch.clamp(var, min=0.0), means=mean, count=m)
 
 
+def _pooled_moments(w, means, variances):
+    """Pooled mean/variance from per-partial fractional weights ``w`` (P,)
+    and moments stacked along dim 0, on the partials' device."""
+    mean = (w[:, None] * means).sum(0)
+    # E[x^2] pooled, then recentred
+    second = (w[:, None] * (means * means + variances)).sum(0)
+    return mean, torch.clamp(second - mean * mean, min=0.0)
+
+
+def combine_screens(partials: list[Screen]) -> Screen:
+    """Merge partial screens (streaming host slices, shards) by the pooled
+    formulas: the global mean/variance from each partial's ``mean_k,
+    var_k, m_k``.  Counts pool as exact Python integers; the moments merge
+    on the partials' device in one stacked reduction."""
+    if not partials:
+        raise ValueError("combine_screens needs at least one partial")
+    counts = [int(p.count) for p in partials]
+    m = sum(counts)
+    m_eff = max(m, 1)
+    means = torch.stack([torch.as_tensor(p.means) for p in partials])
+    variances = torch.stack([torch.as_tensor(p.variances).to(means)
+                             for p in partials])
+    w = torch.tensor([c / m_eff for c in counts], dtype=means.dtype,
+                     device=means.device)
+    mean, var = _pooled_moments(w, means, variances)
+    return Screen(variances=var, means=mean, count=m)
+
+
 def select_support(variances, lam: float, max_reduced: int | None = None
                    ) -> np.ndarray:
     """The one support-selection policy every pipeline leg shares: the

@@ -55,8 +55,9 @@ class SPCAConfig:
     """The reference's configuration, field for field, so a config dict
     carries across (`repro_torch.convert.from_reference`).  Fields whose
     machinery is not ported yet raise `NotImplementedError` when set (see
-    `check_config`); the out-of-core fields only matter to a store handle,
-    which is not ported yet either."""
+    `check_config`); the out-of-core fields (``chunk_nnz`` ...
+    ``io_backoff_s``) only matter to a store handle.  ``csr_impl`` is the
+    CSR wrappers' ``impl``: 'auto' | 'cuda' | 'ref'."""
 
     center: bool = True
     max_reduced: int = 2048
@@ -125,14 +126,27 @@ def check_config(cfg: SPCAConfig) -> None:
                          "Sigma panel height; the Hopper kernel has none")
 
 
-def _as_stats(data, is_covariance: bool, center: bool, device=None):
+def _as_stats(data, is_covariance: bool, center: bool, device=None,
+              cfg: SPCAConfig | None = None, counters: dict | None = None):
     """Normalise input to (variances, reduced-covariance builder): a dense
     (m, n) data matrix or an (n, n) covariance (``is_covariance=True``),
-    as a tensor or numpy array."""
+    as a tensor or numpy array, or an out-of-core `sparse.SparseCorpus`
+    store handle (duck-typed on ``iter_chunks``), whose two streaming
+    passes run through the CSR kernels on ``device`` and never
+    materialise an (m, n) array.  ``counters``, with a store handle,
+    collects the ingest pass/launch tallies (see `sparse.engine`)."""
     if hasattr(data, "iter_chunks"):
-        raise NotImplementedError(
-            "a SparseCorpus store handle (out-of-core fit) is not ported "
-            "yet: ROADMAP queue 1 item 7 (streaming slice)")
+        from ..sparse import engine
+
+        cfg = cfg if cfg is not None else SPCAConfig()
+        return engine.sparse_stats(
+            data, center=center, impl=cfg.csr_impl,
+            chunk_nnz=cfg.chunk_nnz, chunk_rows=cfg.chunk_rows,
+            megabatch=cfg.megabatch_chunks,
+            prefetch_depth=cfg.ingest_prefetch, counters=counters,
+            io_retries=cfg.io_retries, io_backoff_s=cfg.io_backoff_s,
+            resume_dir=cfg.resume_dir, pass_deadline_s=cfg.pass_deadline_s,
+            device=device)
     if is_covariance:
         Sigma = as_tensor(data, device)
 
@@ -281,7 +295,7 @@ def solve_at_lambda(
         cfg = SPCAConfig()
     check_config(cfg)
     if stats is None:
-        stats = _as_stats(data, is_covariance, cfg.center, device)
+        stats = _as_stats(data, is_covariance, cfg.center, device, cfg)
     variances, build = stats
     v = np.array(variances, copy=True)
     if active_mask is not None:
@@ -377,7 +391,7 @@ def search_lambda(
         cfg = SPCAConfig()
     check_config(cfg)
     if stats is None:
-        stats = _as_stats(data, is_covariance, cfg.center, device)
+        stats = _as_stats(data, is_covariance, cfg.center, device, cfg)
     if cfg.batch_evals > 1:
         return _search_lambda_batched(
             target_card, cfg=cfg, active_mask=active_mask, stats=stats,
@@ -698,13 +712,16 @@ def fit_components(
     ``fit.components`` span (one ``fit.component`` child per round).
 
     ``data`` is a dense (m, n) matrix or an (n, n) covariance (tensor or
-    numpy; numpy goes to ``device``, the card by default); ``stats`` a
-    precomputed ``(variances, build)`` pair.  The K searches share ONE
-    covariance cache seeded on the union support, so the whole fit
-    normally costs ONE reduced-Gram build.  With ``cfg.batch_deflation``
-    the K components are re-polished by ONE batched launch.
-    ``diagnostics`` collects the per-component search counters and the
-    launch/build totals (the reference's keys)."""
+    numpy; numpy goes to ``device``, the card by default), or a
+    `sparse.SparseCorpus` store handle (out of core, 'remove' only);
+    ``stats`` a precomputed ``(variances, build)`` pair.  The K searches
+    share ONE covariance cache seeded on the union support, so the whole
+    fit normally costs ONE reduced-Gram build — for a store handle 2
+    corpus passes in all (``corpus_passes``: screen + one shared Gram),
+    with the per-pass ingest tally under ``ingest``.  With
+    ``cfg.batch_deflation`` the K components are re-polished by ONE
+    batched launch.  ``diagnostics`` collects the per-component search
+    counters and the launch/build totals (the reference's keys)."""
     with trace.span("fit.components", n_components=n_components,
                     target_card=target_card, deflation=deflation):
         return _fit_components(
@@ -719,11 +736,19 @@ def _fit_components(data, n_components, target_card, *, is_covariance, cfg,
     if cfg is None:
         cfg = SPCAConfig()
     check_config(cfg)
+    if deflation == "project" and hasattr(data, "iter_chunks"):
+        raise ValueError(
+            "deflation='project' requires a dense (n, n) covariance; "
+            "use deflation='remove' with a SparseCorpus store")
     per_comp: list[dict] = []
     results: list[PCResult] = []
     if deflation == "remove":
+        # ``stats`` given (a launcher that streamed the screen itself)
+        # skips the screen pass; the caller's counters keep the tally
+        ingest: dict = {}
         if stats is None:
-            stats = _as_stats(data, is_covariance, cfg.center, device)
+            stats = _as_stats(data, is_covariance, cfg.center, device, cfg,
+                              counters=ingest)
         mask = np.ones(stats[0].shape[0], dtype=bool)
         cache: ReducedCovarianceCache | None = None
         if cfg.reuse_covariance:
@@ -775,6 +800,13 @@ def _fit_components(data, n_components, target_card, *, is_covariance, cfg,
                     "fallbacks": total_fallbacks, "mesh_degraded": 0,
                 },
             )
+            if ingest:
+                diagnostics.update(
+                    ingest=dict(ingest),
+                    corpus_passes=ingest.get("screen_passes", 0)
+                    + ingest.get("gram_passes", 0),
+                    resumed_megabatches=ingest.get("resumed_megabatches", 0),
+                )
     elif deflation == "project":
         if stats is not None:
             raise ValueError(

@@ -26,6 +26,10 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+# Largest dense (m, n) materialisation allowed before pointing the caller
+# at the out-of-core sparse store (`repro_torch.sparse`).
+DENSE_BYTE_BUDGET = 2 << 30   # 2 GiB
+
 # Planted topics mirroring the paper's Table 1 (NYTimes) so the example
 # output reads like the paper's.
 NYTIMES_TOPICS: dict[str, list[str]] = {

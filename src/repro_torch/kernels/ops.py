@@ -1,5 +1,5 @@
-"""Public wrappers of the port's kernels (port of the solver half of
-``repro.kernels.ops``).
+"""Public wrappers of the port's kernels (port of the solver and CSR parts
+of ``repro.kernels.ops``).
 
 Dispatch is by device, not by a fallback: a CUDA tensor goes to the
 hand-written kernel (``impl='auto'`` or ``'cuda'``) and a failed build or
@@ -7,18 +7,29 @@ launch raises; a CPU tensor goes to the kernel's plain version in
 `kernels.ref`.  ``impl='ref'`` forces the plain version on any device,
 and ``impl='cuda'`` on a CPU tensor raises.  Every call counts one
 ``kernel.launches.<op>`` dispatch in the metrics registry.
+
+The CSR wrappers also take the store's host arrays (numpy, often views
+into `sparse.store.SparseCorpus.iter_megabatches`' buffer ring): they go
+to ``device`` (the card by default) by a blocking copy that has finished
+when the wrapper returns, so the caller may reuse the buffer at once.
+The reference's ``'host'`` numpy/scipy backend has no counterpart: it
+exists there only because XLA's CPU scatter is a sequential loop, and
+torch's ``index_add_`` on the CPU is not.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..device import as_tensor
 from ..obs import metrics, profile
-from . import bcd_fused, ref
+from . import bcd_fused, csr_gram as csr_gram_kernel, csr_stats, ref
 from .bcd_fused import SolvePlan, plan_fused_solve
 
 __all__ = [
     "SOLVER_FAULTS", "SolvePlan", "bcd_solve", "bcd_solve_batched",
-    "plan_fused_solve", "solver_fault_after", "solver_fault_before",
+    "csr_column_stats", "csr_gram", "csr_gram_batched", "plan_fused_solve",
+    "solver_fault_after", "solver_fault_before",
 ]
 
 # Solver-fault seam (as in the reference): a test installs an injector
@@ -127,3 +138,84 @@ def bcd_solve_batched(Sigmas, lams, betas, X0s, n_valids, *,
             )
     return solver_fault_after("bcd_solve_batched", out,
                               max_sweeps=max_sweeps)
+
+
+def _assert_csr_padding(values, nnz) -> None:
+    """Enforce the store's chunk padding contract on host arrays (numpy or
+    CPU tensors): slots at or past ``nnz`` must carry value 0, so their
+    col/seg ids are additively harmless for every CSR kernel.  ``nnz`` is
+    a scalar for one chunk or a (C,) vector for a megabatch; ``nnz=None``
+    and CUDA tensors (a check would stall the stream) skip it."""
+    if nnz is None or (isinstance(values, torch.Tensor) and values.is_cuda):
+        return
+    v = np.asarray(values)
+    v = v if v.ndim == 2 else v[None, :]
+    k = np.asarray(nnz, np.int64).reshape(-1, 1)
+    lane = np.arange(v.shape[1], dtype=np.int64)[None, :]
+    if np.any((lane >= k) & (v != 0)):
+        raise ValueError(
+            "CSR chunk padding contract violated: slots past nnz must "
+            "carry value 0 (see sparse.store.CSRChunk)")
+
+
+def _csr_inputs(device, values, *ids):
+    """``values`` as float32 and the id arrays as int32 tensors, on the
+    tensors' own device or, for host arrays, on ``device`` (the card by
+    default) by a copy that has landed when this returns."""
+    out = [as_tensor(values, device if not isinstance(values, torch.Tensor)
+                     else None).to(torch.float32)]
+    dev = out[0].device
+    out += [as_tensor(a, dev).to(torch.int32) for a in ids]
+    return out
+
+
+def csr_column_stats(values, col_ids, *, n: int, impl: str = "auto",
+                     nnz=None, device=None):
+    """``(col_sum, col_sumsq)``, (n,) float32, from CSR entries: the sparse
+    leg of the Thm 2.1 screen.  ``values``/``col_ids`` are (E,) for one
+    chunk or (C, E) for a megabatch of C chunks, reduced in ONE launch of
+    kernel K2 on the card.  ``nnz`` (scalar or (C,)), with host arrays,
+    asserts the ``value 0`` padding contract."""
+    _assert_csr_padding(values, nnz)
+    values, col_ids = _csr_inputs(device, values, col_ids)
+    kernel = use_kernel(impl, values)
+    with _launch("csr_column_stats"):
+        if kernel:
+            return csr_stats.csr_column_stats_cuda(values, col_ids, n)
+        return ref.csr_column_stats_ref(values, col_ids, n)
+
+
+def _gram(op: str, values, local_cols, seg_ids, n_rows, n_hat, impl, nnz,
+          device, plain):
+    _assert_csr_padding(values, nnz)
+    values, local_cols, seg_ids = _csr_inputs(device, values, local_cols,
+                                              seg_ids)
+    kernel = use_kernel(impl, values)
+    with _launch(op):
+        if n_hat == 0:
+            return torch.zeros((0, 0), dtype=torch.float32,
+                               device=values.device)
+        if kernel:
+            return csr_gram_kernel.csr_gram_cuda(values, local_cols, seg_ids,
+                                                 n_rows, n_hat)
+        return plain(values, local_cols, seg_ids, n_rows, n_hat)
+
+
+def csr_gram(values, local_cols, seg_ids, *, n_rows: int, n_hat: int,
+             impl: str = "auto", nnz=None, device=None):
+    """Chunk gather-Gram ``G = B^T B`` on the post-elimination support,
+    (n_hat, n_hat) float32.  ``local_cols`` are support positions, with
+    ``>= n_hat`` meaning "drop" (entry off the support); ``seg_ids`` are
+    chunk-local rows.  On the card: kernel K3 at C = 1."""
+    return _gram("csr_gram", values, local_cols, seg_ids, n_rows, n_hat,
+                 impl, nnz, device, ref.csr_gram_ref)
+
+
+def csr_gram_batched(values, local_cols, seg_ids, *, n_rows: int,
+                     n_hat: int, impl: str = "auto", nnz=None, device=None):
+    """Megabatch gather-Gram: C chunks' ``sum_c B_c^T B_c`` in ONE launch
+    of kernel K3 at any ``n_hat`` (the output is tiled, so there is no
+    per-chunk fallback).  Inputs are (C, E); ``nnz`` (C,), with host
+    arrays, asserts the ``value 0`` padding contract."""
+    return _gram("csr_gram_batched", values, local_cols, seg_ids, n_rows,
+                 n_hat, impl, nnz, device, ref.csr_gram_batched_ref)

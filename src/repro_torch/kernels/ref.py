@@ -1,10 +1,19 @@
-"""Plain PyTorch versions of the fused BCD kernel (port of the BCD part of
-``repro.kernels.ref``).
+"""Plain PyTorch versions of the port's kernels (port of the BCD and CSR
+parts of ``repro.kernels.ref``).
 
-These are the kernel's plain versions: the CPU tests run them, `ops` takes
+These are the kernels' plain versions: the CPU tests run them, `ops` takes
 them for a tensor that lies on the CPU (or for ``impl='ref'``), and
-``chip_smoke.py`` holds the CUDA kernel against them on the card.  They run
-on the device of their inputs.
+``chip_smoke.py`` holds the CUDA kernels against them on the card.  They
+run on the device of their inputs.
+
+CSR oracles (kernels K2 and K3): a scatter with the reference's
+``mode='drop'`` semantics (a column ``>= n``, a local column ``>= n_hat``
+or a row ``>= n_rows`` adds nothing; padded slots carry value 0 and add
+nothing wherever they point), then, for the Gram, ``B.T @ B`` in float32
+with TF32 off.  The column stats accumulate in float64 and round to
+float32 once, as the kernel does (and as the reference's host backend
+does); the reference's own oracle scatters in float32, which agrees to
+float32 rounding.
 
 The coordinate recursion of the box QP is sequential, so it is a Python
 loop: the scalar part of each coordinate step is computed on the host in
@@ -13,6 +22,8 @@ numpy scalars of the working dtype (so float32 stays float32), and the
 operation is the reference's, in the reference's order.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -204,3 +215,70 @@ def bcd_solve_batched_ref(
         for b in range(B)
     ]
     return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """Float32 matrix products in full float32 (TF32 off) inside the
+    block, whatever the caller set; restored after."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def csr_column_stats_ref(values, col_ids, n: int):
+    """Per-column (sum, sumsq), (n,) float32 each, from flat CSR entries:
+    a float64 scatter-add rounded to float32 once.  Columns outside
+    [0, n) are dropped."""
+    v = values.reshape(-1).to(torch.float64)
+    c = col_ids.reshape(-1).to(torch.int64)
+    keep = (c >= 0) & (c < n)
+    v, c = v[keep], c[keep]
+    s = torch.zeros(n, dtype=torch.float64, device=v.device)
+    ss = torch.zeros(n, dtype=torch.float64, device=v.device)
+    s.index_add_(0, c, v)
+    ss.index_add_(0, c, v * v)
+    return s.to(torch.float32), ss.to(torch.float32)
+
+
+def csr_column_stats_batched_ref(values, col_ids, n: int):
+    """Megabatch oracle: the (C, E) entries of C chunks in ONE scatter
+    (the sum of the per-chunk `csr_column_stats_ref`)."""
+    return csr_column_stats_ref(values.reshape(-1), col_ids.reshape(-1), n)
+
+
+def _densify_gram(values, rows, cols, n_rows_total: int, n_hat: int):
+    """``B[rows, cols] += values`` on an (n_rows_total, n_hat) float32
+    matrix with out-of-range rows/cols dropped, then ``B.T @ B``."""
+    v = values.reshape(-1).to(torch.float32)
+    r = rows.reshape(-1).to(torch.int64)
+    c = cols.reshape(-1).to(torch.int64)
+    keep = (c >= 0) & (c < n_hat) & (r >= 0) & (r < n_rows_total)
+    B = torch.zeros((n_rows_total, n_hat), dtype=torch.float32,
+                    device=v.device)
+    B.index_put_((r[keep], c[keep]), v[keep], accumulate=True)
+    with full_fp32():
+        return B.T @ B
+
+
+def csr_gram_ref(values, local_cols, seg_ids, n_rows: int, n_hat: int):
+    """Chunk gather-Gram oracle: densify the chunk onto the support
+    (``B[seg, col] += v``, off-support sentinels ``col >= n_hat``
+    dropped) and contract rows: ``G = B^T B``, (n_hat, n_hat) float32."""
+    return _densify_gram(values, seg_ids, local_cols, n_rows, n_hat)
+
+
+def csr_gram_batched_ref(values, local_cols, seg_ids, n_rows: int,
+                         n_hat: int):
+    """Megabatch gather-Gram oracle: the C chunks of (C, E) entries
+    densified into one stacked (C * n_rows, n_hat) matrix (chunk c's rows
+    at ``c * n_rows + seg``, so chunks never mix rows), contracted once:
+    ``G = sum_c B_c^T B_c``.  A row ``>= n_rows`` is dropped."""
+    C = values.shape[0]
+    seg = seg_ids.to(torch.int64)
+    rows = torch.where((seg >= 0) & (seg < n_rows), seg, C * n_rows) + (
+        n_rows * torch.arange(C, device=seg.device)[:, None])
+    return _densify_gram(values, rows, local_cols, C * n_rows, n_hat)

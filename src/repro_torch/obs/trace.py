@@ -336,11 +336,15 @@ def span(name: str, *, sync=None, **attrs):
 
 
 def device_sync(x):
-    """Block until the device work producing ``x`` lands — but only while a
-    tracer is active and ``x`` is a CUDA tensor, so span ends mark real
-    device completion without taxing untraced runs.  Returns ``x``."""
-    if _active is not None and getattr(x, "is_cuda", False):
-        import torch
+    """Block until the device work producing ``x`` (a tensor, or a tuple or
+    list of them) lands — but only while a tracer is active and a CUDA
+    tensor is among them, so span ends mark real device completion
+    without taxing untraced runs.  Returns ``x``."""
+    if _active is not None:
+        for t in x if isinstance(x, (tuple, list)) else (x,):
+            if getattr(t, "is_cuda", False):
+                import torch
 
-        torch.cuda.synchronize(x.device)
+                torch.cuda.synchronize(t.device)
+                break
     return x

@@ -1,7 +1,9 @@
 """Guards of the port's package boundary: ``repro_torch`` (and
 ``chip_smoke.py``) never import jax or the reference package, entry points
 refuse a missing card instead of falling back to the CPU, and the kernel
-tests that need a card skip without one."""
+tests that need a card skip without one.  This file imports no jax, so
+its ``gpu``-marked tests run on a machine with a card and no jax
+(``pytest --noconftest -m gpu tests/test_torch_package.py``)."""
 import pathlib
 import re
 import subprocess
@@ -130,3 +132,51 @@ def test_kernel_matches_plain_version_on_card(cuda, dtype, scheme):
     if dtype == torch.float64:
         torch.testing.assert_close(got[0], want[0], rtol=1e-10, atol=1e-10)
     torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)
+
+
+def _csr_megabatch(C, E, R, n, nnz, seed):
+    """C padded chunks: chunk c holds ``nnz[c]`` entries at distinct
+    (row, col) in [0, R) x [0, n + 25) (columns >= n are off-support
+    sentinels for the Gram), rows unsorted, then value-0 padding."""
+    rng = np.random.default_rng(seed)
+    vals = np.zeros((C, E), np.float32)
+    cols = np.zeros((C, E), np.int32)
+    segs = np.zeros((C, E), np.int32)
+    for c, k in enumerate(nnz):
+        cells = rng.choice(R * (n + 25), size=k, replace=False)
+        vals[c, :k] = rng.normal(size=k)
+        segs[c, :k], cols[c, :k] = np.divmod(cells, n + 25)
+    return vals, cols, segs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,E,R,n_hat,nnz", [
+    (4, 512, 32, 130, [512, 512, 300, 0]),
+    (1, 2048, 64, 33, [2000]),
+    (8, 1024, 512, 300, [1024] * 7 + [17]),
+])
+def test_csr_kernels_match_plain_versions_on_card(cuda, C, E, R, n_hat, nnz):
+    """K2 and K3 against their plain versions: 1e-6 of the largest entry
+    (float32 sums in another order); K3 symmetric and deterministic."""
+    from repro_torch.kernels import ops
+
+    vals, cols, segs = (torch.from_numpy(a).to(cuda) for a in
+                        _csr_megabatch(C, E, R, n_hat, nnz, C * E))
+
+    def close(a, b):
+        assert a.shape == b.shape
+        tol = 1e-6 * max(1.0, float(b.abs().max()))
+        assert float((a - b).abs().max()) <= tol
+
+    n = n_hat + 25
+    for got, want in zip(ops.csr_column_stats(vals, cols, n=n, impl="cuda"),
+                         ops.csr_column_stats(vals, cols, n=n, impl="ref")):
+        close(got, want)
+    kw = dict(n_rows=R, n_hat=n_hat)
+    G = ops.csr_gram_batched(vals, cols, segs, impl="cuda", **kw)
+    close(G, ops.csr_gram_batched(vals, cols, segs, impl="ref", **kw))
+    assert torch.equal(G, G.T)
+    assert torch.equal(G, ops.csr_gram_batched(vals, cols, segs, impl="cuda",
+                                               **kw))
+    close(ops.csr_gram(vals[0], cols[0], segs[0], impl="cuda", **kw),
+          ops.csr_gram(vals[0], cols[0], segs[0], impl="ref", **kw))

@@ -137,13 +137,24 @@ def test_unported_config_fields_raise(field, value):
         tfit(np.eye(4), 1, target_card=1, cfg=cfg, device="cpu")
 
 
-def test_store_handle_raises_not_ported():
-    class Store:
-        def iter_chunks(self):
-            return iter(())
+def test_store_handle_raises_not_ported(tmp_path):
+    """A store handle fits out of core since the streaming slice (ROADMAP
+    queue 1 item 7); what it still refuses, naming the item that ports
+    it, is the pass checkpoints and the pass watchdog (item 8)."""
+    from repro_torch.core import spca
+    from repro_torch.sparse import write_corpus
 
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tfit(Store(), 1, cfg=TConfig(), device="cpu")
+    store = write_corpus(tcorpus.make_corpus(300, 400, seed=1),
+                         str(tmp_path / "s"))
+    for bad in (dict(pass_deadline_s=5.0), dict(resume_dir=str(tmp_path))):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            tfit(store, 1, cfg=TConfig(**bad), device="cpu")
+        with pytest.raises(NotImplementedError, match="item 8"):
+            spca._as_stats(store, False, True, "cpu", TConfig(**bad))
+    diag = {}
+    pcs = tfit(store, 1, target_card=3, diagnostics=diag, device="cpu",
+               cfg=TConfig(max_sweeps=3, lam_search_evals=3))
+    assert pcs[0].cardinality > 0 and diag["corpus_passes"] == 2
 
 
 def test_convert_from_reference_state():
