@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the port's three CUDA kernels from the sources in this checkout
-(K1 ``bcd_fused``, K2 ``csr_stats``, K3 ``csr_gram``; one ``nvcc`` each,
-all started together), holds each against its plain PyTorch version on
-the same inputs, and drives both fits of ``repro_torch.launch.spca_run``
-at NYTimes width (102,660 words, 5 components, target cardinality 5):
+Builds the port's four CUDA kernels from the sources in this checkout
+(K1 ``bcd_fused``, K2 ``csr_stats``, K3 ``csr_gram``, K4 ``project``; one
+``nvcc`` each, all started together), holds each against its plain
+PyTorch version on the same inputs, and drives both fits of
+``repro_torch.launch.spca_run`` and the serving launcher
+``repro_torch.launch.serve_topics`` at NYTimes width (102,660 words, 5
+components, target cardinality 5):
 
 * the dense fit at 30,000 docs, against the reference record in
   ``src/repro_torch/data/reference/spca_run_nytimes.json``; K1 is held
@@ -19,7 +21,13 @@ at NYTimes width (102,660 words, 5 components, target cardinality 5):
   against ``spca_run_nytimes_streaming.json``; K2 and K3 are held to
   their plain versions on real megabatches of that store, both corpus
   passes are held to exact float64 statistics of the corpus, and both
-  kernels are timed at the fit's shape beside their bounds.
+  kernels are timed at the fit's shape beside their bounds;
+* serving: the launcher's fit at 30,000 docs, registration, 4,000
+  queries in batches of 64 (one K4 launch each) and both drift streams,
+  against ``serve_topics_nytimes.json``; K4 is held to its plain version
+  and to the record's reference scores, timed at B 64 and 512 beside its
+  bound and ``X @ W``, and a batch's time is split between its host and
+  device parts.
 
 Each phase prints one JSON line; a failed check raises, so the script
 exits non-zero.  The last lines are the kernel table, the card's name
@@ -43,7 +51,10 @@ FIT_ARGS = ["--corpus", "nytimes", "--docs", "30000", "--components", "5",
             "--target-card", "5"]
 STREAM_ARGS = ["--streaming", "--corpus", "nytimes", "--docs", "300000",
                "--components", "5", "--target-card", "5", "--device", "cuda"]
-KERNELS = ("bcd_fused", "csr_stats", "csr_gram")
+SERVE_ARGS = ["--docs", "30000", "--words", "102660", "--components", "5",
+              "--target-card", "5", "--queries", "4000", "--batch", "64",
+              "--device", "cuda"]
+KERNELS = ("bcd_fused", "csr_stats", "csr_gram", "project")
 CHUNK_ROWS, MEGABATCH = 512, 8   # the launcher's default pass geometry
 
 
@@ -951,6 +962,293 @@ def phase_csr_timing(store, support, mb):
         emit("timing", **{"C": C, "E": E, "n": n, "R": R, **row})
     return {r["name"]: r for r in rows}
 
+# ---------------------------------------------------------------- serving
+
+
+def _dense_rows(docs, rows, n):
+    """The first ``rows`` (word_ids, counts) documents as a dense (rows, n)
+    float32 batch, scattered as the microbatcher does."""
+    import numpy as np
+
+    X = np.zeros((rows, n), np.float32)
+    for r, (wi, ct) in zip(range(rows), docs):
+        np.add.at(X[r], wi, ct)
+    return X
+
+
+def phase_serve(record):
+    """The serving launcher at NYTimes width on the card, with K4's count
+    and the registry set to 0 just before and read just after: the
+    record's supports (lambdas beside it), the record's registry manifest,
+    ``kernel.launches.sparse_project`` = K4's own count = batches served +
+    the two warm-ups, one input shape (``trace_count == 1``), drift quiet
+    in distribution and firing on the shifted stream, and the record's
+    first 64 queries rebuilt (same nnz and count total)."""
+    import numpy as np
+
+    from repro_torch.kernels import project
+    from repro_torch.launch import serve_topics
+    from repro_torch.obs import metrics
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_registry_") as root, \
+            metrics.use_registry() as reg:
+        project.reset_launches()
+        t0 = time.perf_counter()
+        out = serve_topics.main(SERVE_ARGS + ["--registry", root])
+        wall = time.perf_counter() - t0
+        launches = project.launches
+        dispatches = reg.value("kernel.launches.sparse_project")
+        with open(os.path.join(root, "step_000000000", "manifest.json")) as f:
+            manifest = f.read()
+    results, mv, q = out["results"], out["version"], out["queries"]
+    rec = record
+    X64 = _dense_rows(serve_topics.iter_docs(q), 64, q.n_words)
+    fq = rec["first_queries"]
+    same_batch = (np.count_nonzero(X64, axis=1).tolist() == fq["doc_nnz"]
+                  and float(X64.sum(dtype=np.float64)) == fq["count_total"])
+    rep, rep2 = out["drift"], out["drift_shifted"]
+
+    def report(r):
+        return {"triggered": bool(r.triggered), "n_offending": r.n_offending,
+                "offending": r.offending[:8].tolist(),
+                "max_ratio": r.max_ratio, "docs_seen": r.docs_seen}
+
+    batches = sum(out["batches"])
+    emit("serve", seconds=wall, fit_s=out["fit_s"], serve_s=out["serve_s"],
+         docs_per_s=out["served"] / out["serve_s"],
+         p50_ms=out["latency"]["p50_ms"], p99_ms=out["latency"]["p99_ms"],
+         served=out["served"], batches=out["batches"],
+         warmups=out["warmups"], project_launches=launches,
+         **{"kernel.launches.sparse_project": dispatches},
+         trace_count=out["trace_count"],
+         histogram=out["histogram"].tolist(),
+         record_histogram=rec["serve"]["histogram"],
+         components=_vs_record(results, rec["fit"]),
+         pack={"k": mv.pack.k, "cap": mv.pack.cap, "nnz": mv.pack.nnz},
+         record_pack={k: rec["pack"][k] for k in ("k", "cap", "nnz")},
+         manifest_equal=manifest == rec["registry_manifest"],
+         drift=report(rep), record_drift=rec["drift"]["in_distribution"],
+         drift_shifted=report(rep2),
+         record_drift_shifted=rec["drift"]["shifted"],
+         first_queries_rebuilt=same_batch)
+    check(_same_supports(results, rec["fit"]),
+          "serving fit's supports differ from the serve record")
+    check(manifest == rec["registry_manifest"],
+          "the registry manifest differs from the reference launcher's")
+    check(launches == dispatches == batches + out["warmups"] > 0,
+          "K4 launches != kernel.launches.sparse_project != batches + 2")
+    check(out["trace_count"] == 1, "the projector saw more than one shape")
+    check(not rep.triggered and rep2.triggered,
+          "drift not quiet in distribution or not firing on the shift")
+    check(out["served"] == rec["serve"]["served"], "served count")
+    check(same_batch, "the first 64 queries differ from the record's")
+    return {**out, "k4_launches": launches}
+
+
+def _pack_case(rng, n, k, cap, *, overlap=0, empty=None):
+    """A random pack in the projector's layout (cards 4..cap, the first
+    ``overlap`` words shared, component ``empty`` all padding)."""
+    import numpy as np
+
+    sidx = np.zeros((k, cap), np.int32)
+    vals = np.zeros((k, cap), np.float32)
+    shared = rng.choice(n, size=overlap, replace=False)
+    for c in range(k):
+        if c == empty:
+            continue
+        card = min(cap, 4 + c)
+        own = rng.choice(n, size=card - overlap, replace=False)
+        words = np.sort(np.concatenate([shared, own]))
+        sidx[c, :words.size] = words
+        vals[c, :words.size] = rng.normal(size=words.size)
+    return sidx, vals
+
+
+def phase_project_parity(record, queries):
+    """K4 against its plain version on the card, within 1e-5 of the
+    largest |score| (both sum a component's slots in slot order, multiply
+    then add, so they should agree to the bit on finite input), and run to
+    run: the record's packed model on the record's first 64 queries (also
+    held to the record's reference scores, same tolerance); random packs
+    at n = 102,660, k = 5, B in {1, 64, 512} x cap in {8, 16}; overlapping
+    supports; a component that is all padding (its scores exactly 0).
+    Returns the worst |diff| against the plain version."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_topics
+
+    dev = torch.device("cuda")
+    n, k = queries.n_words, 5
+    rng = np.random.default_rng(13)
+    X64 = _dense_rows(serve_topics.iter_docs(queries), 64, n)
+    rows = _dense_rows(serve_topics.iter_docs(queries), 512, n)
+    cases = [("record_pack", X64, np.asarray(record["pack"]["support_idx"],
+                                             np.int32),
+              np.asarray(record["pack"]["values"], np.float32), None)]
+    for B in (1, 64, 512):
+        for cap in (8, 16):
+            cases.append((f"B{B}_cap{cap}", rows[:B],
+                          *_pack_case(rng, n, k, cap), None))
+    cases.append(("overlap", rows[:64], *_pack_case(rng, n, k, 8, overlap=3),
+                  None))
+    cases.append(("all_padding", rows[:64],
+                  *_pack_case(rng, n, k, 8, empty=2), 2))
+    worst = rerun_worst = 0.0
+    for label, X, sidx, vals, empty in cases:
+        Xd, sd, vd = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                      for a in (X, sidx, vals))
+        got = ops.sparse_project(Xd, sd, vd, impl="cuda")
+        again = ops.sparse_project(Xd, sd, vd, impl="cuda")
+        want = ops.sparse_project(Xd, sd, vd, impl="ref")
+        torch.cuda.synchronize()
+        scale = max(1.0, float(want.abs().max()))
+        diff = float((got - want).abs().max())
+        rerun = float((got - again).abs().max())
+        ok = diff <= 1e-5 * scale and rerun == 0.0
+        row = {"case": label, "B": X.shape[0], "cap": sidx.shape[1],
+               "max_abs_diff": diff, "max_abs_score": scale,
+               "run_to_run_max_abs_diff": rerun,
+               "tolerance": "1e-5 of max |score|"}
+        if label == "record_pack":
+            recd = torch.tensor(record["first_queries"]["scores"],
+                                device=dev)
+            rdiff = float((got - recd).abs().max())
+            row["vs_record_max_abs_diff"] = rdiff
+            ok = ok and rdiff <= 1e-5 * scale
+        if empty is not None:
+            row["padding_component_zero"] = not bool(got[:, empty].any())
+            ok = ok and row["padding_component_zero"]
+        emit("project_parity", **row, ok=ok)
+        check(ok, f"project_parity {label}")
+        worst, rerun_worst = max(worst, diff), max(rerun_worst, rerun)
+    return worst, rerun_worst
+
+
+def phase_project_timing(record, queries):
+    """K4 on the record's packed model at B 64 (the serving batch) and B
+    512: ms per launch (CUDA events, 200 launches), the plain version's ms
+    (no yardstick: it repeats the kernel's arithmetic in cap + 2 launches),
+    ``X @ W`` with W the dense (n, k) float32 loading matrix (TF32 off: the
+    one library call that computes the same function; it reads the whole
+    batch), and the bound: the larger of the bytes the function needs (the
+    B x live-word values of X it gathers, the pack, the output) over 3.35
+    TB/s and its 2 multiply-adds per live slot over 67 TFLOP/s."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import project, ref
+    from repro_torch.launch import serve_topics
+
+    dev = torch.device("cuda")
+    n = queries.n_words
+    sidx = np.asarray(record["pack"]["support_idx"], np.int32)
+    vals = np.asarray(record["pack"]["values"], np.float32)
+    k, cap = sidx.shape
+    W = np.zeros((n, k), np.float32)
+    for c in range(k):
+        np.add.at(W[:, c], sidx[c], vals[c])
+    live = vals != 0
+    words = np.unique(sidx[live]).size
+    sd, vd, Wd = (torch.from_numpy(a).to(dev) for a in (sidx, vals, W))
+    rows = _dense_rows(serve_topics.iter_docs(queries), 512, n)
+    out = {}
+    for B in (64, 512):
+        X = torch.from_numpy(rows[:B].copy()).to(dev)
+        ms = cuda_ms(lambda: project.sparse_project_cuda(X, sd, vd), 200)
+        plain = cuda_ms(lambda: ref.sparse_project_ref(X, sd, vd), 50)
+        with ref.full_fp32():
+            lib = cuda_ms(lambda: X @ Wd, 200)
+        nbytes = B * words * 4 + sidx.size * 8 + B * k * 4
+        ops = 2 * B * int(live.sum())
+        tb, to = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_FLOPS * 1e3
+        row = {"name": "sparse_project", "B": B, "n": n, "k": k, "cap": cap,
+               "ms": ms, "plain_ms": plain, "library_ms": lib,
+               "library": "X @ W, W dense (n, k) float32, TF32 off",
+               "bound_ms": max(tb, to),
+               "bound_by": "bytes" if tb >= to else "operations",
+               "bytes": nbytes, "ops": ops, "live_slots": int(live.sum()),
+               "dense_batch_bytes": B * n * 4}
+        emit("timing", **row)
+        out[B] = row
+    return out
+
+
+def phase_serve_split(mv, queries):
+    """Where a serving batch's time goes, on the card, at batch 64: the
+    launcher's serving loop again (4,000 queries, drift observer on) under
+    torch.profiler for the device's busy and idle share of its wall time;
+    then the batch's parts one by one on the first 64 batches of queries,
+    each ending in a synchronise: host densify (zero the (64, n) matrix
+    and scatter the requests, as ``MicroBatcher._collect`` does), the copy
+    to the card, K4, the drift fold (its own copy to the card, the column
+    moments and the pooled merge) and future resolution (the scores' copy
+    back and 64 ``set_result``)."""
+    from concurrent.futures import Future
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.device import as_tensor, to_host
+    from repro_torch.launch import serve_topics
+    from repro_torch.serve import BatcherConfig, DriftMonitor, MicroBatcher
+
+    dev = torch.device("cuda")
+    n, B = queries.n_words, 64
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    monitor = DriftMonitor(mv.screen, mv.lams, min_docs=B * 4)
+    batcher = MicroBatcher(mv.projector, n,
+                           BatcherConfig(max_batch=B, max_wait_ms=2.0),
+                           observer=monitor.observe)
+    with batcher:
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            served, _ = serve_topics.serve_stream(
+                batcher, serve_topics.iter_docs(queries))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    events = _device_events(prof)
+    busy_ms = sum(e[0] for e in events)
+    docs = list(serve_topics.iter_docs(queries))
+    parts = {"densify": 0.0, "copy_to_card": 0.0, "k4": 0.0,
+             "drift_fold": 0.0, "resolve": 0.0}
+    fold = DriftMonitor(mv.screen, mv.lams, min_docs=B * 4)
+    n_batches = 0
+    for lo in range(0, min(len(docs), 64 * B), B):
+        reqs = docs[lo:lo + B]
+        t0 = time.perf_counter()
+        X = np.zeros((B, n), np.float32)
+        for i, (wi, ct) in enumerate(reqs):
+            np.add.at(X[i], wi, ct)
+        t1 = time.perf_counter()
+        Xd = as_tensor(X, dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        scores = mv.projector.project(Xd)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        fold.observe(X[:len(reqs)])
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        host = to_host(scores)
+        for i in range(len(reqs)):
+            Future().set_result(host[i])
+        t5 = time.perf_counter()
+        for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
+                                   t5 - t4)):
+            parts[key] += dt
+        n_batches += 1
+    per_batch_ms = {key: v / n_batches * 1e3 for key, v in parts.items()}
+    total = sum(per_batch_ms.values())
+    emit("serve_split", served=served, serve_wall_s=wall,
+         device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / 1e3 / wall,
+         top=[{"ms": ms, "count": c, "name": name}
+              for ms, c, name in events[:8]],
+         batches_timed=n_batches, per_batch_ms=per_batch_ms,
+         share={key: v / total for key, v in per_batch_ms.items()})
+
 
 def main():
     import torch
@@ -969,6 +1267,8 @@ def main():
     record = json.load(open(os.path.join(ref_dir, "spca_run_nytimes.json")))
     srecord = json.load(open(os.path.join(
         ref_dir, "spca_run_nytimes_streaming.json")))
+    vrecord = json.load(open(os.path.join(ref_dir,
+                                          "serve_topics_nytimes.json")))
 
     phase_env()
     # slice (a): the dense fit and K1
@@ -1003,6 +1303,12 @@ def main():
         phase_ingest_passes(s_corpus, store, sups["union"], exact)
         trow = phase_csr_timing(store, sups["union"], first_mb)
         del store
+    del s_corpus
+    # slice (c): serving and K4
+    served = phase_serve(vrecord)
+    p_worst, p_rerun = phase_project_parity(vrecord, served["queries"])
+    prow = phase_project_timing(vrecord, served["queries"])
+    phase_serve_split(served["version"], served["queries"])
     kernels = [{
         "name": "bcd_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bcd_fused.cu",
@@ -1023,6 +1329,15 @@ def main():
             "max_abs_err": csr_worst[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    p64 = prow[64]
+    kernels.append({
+        "name": "sparse_project", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/project.cu",
+        "replaces": "src/repro/kernels/project.py:39",
+        "launches": served["k4_launches"], "max_abs_err": p_worst,
+        "ms": p64["ms"], "plain_ms": p64["plain_ms"],
+        "bound_ms": p64["bound_ms"], "bound_by": p64["bound_by"],
+        "library_ms": p64["library_ms"]})
     emit("kernels", table=[
         {**kernels[0], "replaces_also": "src/repro/kernels/bcd_fused.py:197",
          "max_abs_err_by_dtype": worst, "chaotic_case_max_abs_dX": chaotic_dX},
@@ -1032,6 +1347,10 @@ def main():
          "run_to_run_max_abs_diff": csr_rerun["csr_gram"],
          "library": trow["csr_gram"]["library"],
          "single_chunk": {k: trow["csr_gram_c1"][k] for k in (
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}},
+        {**kernels[3], "run_to_run_max_abs_diff": p_rerun,
+         "library": p64["library"],
+         "batch_512": {k: prow[512][k] for k in (
              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}])
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -1,0 +1,166 @@
+"""Checkpoints in the reference's on-disk format, without jax.
+
+Port of ``repro.checkpoint.checkpoint``.  Format (one directory per step):
+
+    step_000123/
+      manifest.json       {"step", "complete", "leaves": {path: {shape, dtype}}}
+      host_00000.npz      the leaves' data, one npz member per leaf
+
+- Writes are atomic: data and manifest land in ``<dir>.tmp``, which is
+  renamed only after both are written, so a killed writer never leaves a
+  half-checkpoint that `restore` would pick up (``complete`` is checked
+  again by `latest_step`).
+- Leaf paths are the reference's: jax's ``tree_flatten_with_path`` order
+  (dict keys sorted, list and tuple items by index, ``None`` an empty
+  subtree) with the path parts joined by ``/``.  So the npz member order
+  and the manifest's ``leaves`` order match the reference's, and a
+  checkpoint written by either package restores in the other.  Trees are
+  nested dicts, lists and tuples; leaves are tensors, numpy arrays or
+  scalars.
+- `restore` returns tensors on the CPU, or on ``device`` when one is
+  given; the reference's elastic placement onto a jax mesh has no
+  counterpart here.
+- `prune` keeps the ``keep`` newest complete steps.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import zipfile
+
+import numpy as np
+import torch
+
+from ..device import to_host
+
+DATA_NAME = "host_00000.npz"
+
+
+def _step_of(dirname: str) -> int | None:
+    """Parse ``step_NNNNNNNNN`` -> step, or None for anything else a crash
+    or a stray file may have left in the checkpoint root."""
+    if not dirname.startswith("step_") or dirname.endswith(".tmp"):
+        return None
+    try:
+        return int(dirname.split("_")[1])
+    except (IndexError, ValueError):
+        return None
+
+
+def _flatten(tree, prefix: tuple = ()) -> dict:
+    """``{path: leaf}`` in jax's flattening order (see the module note)."""
+    if tree is None:
+        return {}
+    if isinstance(tree, dict):
+        items = ((str(k), tree[k]) for k in sorted(tree))
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return {"/".join(prefix): tree}
+    out = {}
+    for key, sub in items:
+        out.update(_flatten(sub, prefix + (key,)))
+    return out
+
+
+def _unflatten(tree, leaves: dict, prefix: tuple = ()):
+    """``tree``'s structure with each leaf replaced from ``leaves``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _unflatten(tree[k], leaves, prefix + (str(k),))
+                for k in tree}
+    if isinstance(tree, (list, tuple)):
+        out = [_unflatten(v, leaves, prefix + (str(i),))
+               for i, v in enumerate(tree)]
+        return out if isinstance(tree, list) else type(tree)(out)
+    return leaves["/".join(prefix)]
+
+
+def save(ckpt_dir: str, step: int, tree) -> str:
+    """Write a checkpoint; returns the final directory path."""
+    final = os.path.join(ckpt_dir, f"step_{step:09d}")
+    tmp = final + ".tmp"
+    os.makedirs(tmp, exist_ok=True)
+    arrays = {k: to_host(v) for k, v in _flatten(tree).items()}
+    np.savez(os.path.join(tmp, DATA_NAME), **arrays)
+    manifest = {
+        "step": step,
+        "complete": True,
+        "leaves": {
+            k: {"shape": list(v.shape), "dtype": str(v.dtype)}
+            for k, v in arrays.items()
+        },
+    }
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    return final
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    """Newest RESTORABLE step: a checkpoint counts only when its name
+    parses, its manifest is readable JSON marked ``complete``, and the
+    data file exists — everything else (leftover ``.tmp`` dirs, torn
+    manifests, a manifest whose npz never landed) is what a crashed
+    writer leaves behind, and is skipped."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = []
+    for d in os.listdir(ckpt_dir):
+        step = _step_of(d)
+        if step is None:
+            continue
+        try:
+            with open(os.path.join(ckpt_dir, d, "manifest.json")) as f:
+                m = json.load(f)
+        except (OSError, ValueError):
+            continue
+        if m.get("complete") and os.path.exists(
+                os.path.join(ckpt_dir, d, DATA_NAME)):
+            steps.append(step)
+    return max(steps) if steps else None
+
+
+def restore(ckpt_dir: str, step: int, like_tree, device=None):
+    """Restore into the structure of ``like_tree``, whose leaves give the
+    expected shapes (tensors, numpy arrays, or anything with ``.shape``).
+    Leaves come back as tensors of the stored dtype, on ``device`` (the
+    CPU by default).  A corrupt or missing step raises RuntimeError; a
+    stored shape that differs from the expected one raises ValueError."""
+    d = os.path.join(ckpt_dir, f"step_{step:09d}")
+    try:
+        data = np.load(os.path.join(d, DATA_NAME))
+    except (OSError, ValueError, zipfile.BadZipFile) as e:
+        raise RuntimeError(
+            f"checkpoint step {step} at {d} is corrupt or missing "
+            f"({type(e).__name__}: {e}); pick a restorable step with "
+            "latest_step()"
+        ) from e
+    leaves = {}
+    with data:
+        for key, like in _flatten(like_tree).items():
+            arr = data[key]
+            if tuple(arr.shape) != tuple(like.shape):
+                raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
+                                 f"expected {tuple(like.shape)}")
+            t = torch.from_numpy(arr)
+            leaves[key] = t if device is None else t.to(device)
+    return _unflatten(like_tree, leaves)
+
+
+def prune(ckpt_dir: str, keep: int = 3):
+    """Retain the ``keep`` newest steps; unparsable directory names (crash
+    debris) are left alone rather than crashing the retention sweep."""
+    if not os.path.isdir(ckpt_dir):
+        return
+    steps = sorted(
+        s for s in (_step_of(d) for d in os.listdir(ckpt_dir))
+        if s is not None
+    )
+    for s in steps[:-keep]:
+        shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:09d}"),
+                      ignore_errors=True)

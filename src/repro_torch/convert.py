@@ -3,10 +3,10 @@
 Sparse PCA has no learned weights: what makes the two packages compute
 the same thing is the same configuration and the same numeric state (the
 variance screen, the reduced covariance, a warm start, a fitted
-component).  These helpers take that state as the reference produces it
-— its ``SPCAConfig`` as ``dataclasses.asdict``, numpy arrays, a
-``PCResult`` as a dict — and return the port's objects, without importing
-the reference.
+component, a packed serving model).  These helpers take that state as
+the reference produces it — its ``SPCAConfig`` as ``dataclasses.asdict``,
+numpy arrays, a ``PCResult`` as a dict, a registry version's checkpoint
+leaves — and return the port's objects, without importing the reference.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ import torch
 
 from .core.spca import PCResult, SPCAConfig
 from .device import as_tensor
+from .serve.registry import ModelVersion, version_from_tree
 
 _CFG_FIELDS = {f.name for f in fields(SPCAConfig)}
 _PC_FIELDS = {f.name for f in fields(PCResult)}
@@ -76,3 +77,22 @@ def pc_result_from_reference(pc_fields: dict, *, device=None) -> PCResult:
            "lam": float(d["lam"]), "variance": float(d["variance"]),
            "cardinality": int(d["cardinality"]),
            "reduced_n": int(d["reduced_n"]), "gap": float(d["gap"])})
+
+
+_VERSION_KEYS = {"support_idx", "values", "n_features", "lam", "lams",
+                 "screen_var", "screen_mean", "screen_count", "meta_json"}
+
+
+def model_version_from_reference(fields: dict, *, device=None
+                                 ) -> ModelVersion:
+    """A reference registry version's leaves (numpy arrays under the
+    reference's keys: ``support_idx``, ``values``, ``n_features``, ``lam``,
+    ``lams``, ``screen_var``, ``screen_mean``, ``screen_count``,
+    ``meta_json``) as the port's `serve.ModelVersion` (version 0), its
+    projector and screen on ``device`` (the card by default).  An unknown
+    key raises."""
+    unknown = set(fields) - _VERSION_KEYS
+    if unknown:
+        raise TypeError(f"not registry leaves: {sorted(unknown)}")
+    return version_from_tree({k: np.asarray(v) for k, v in fields.items()},
+                             version=0, device=device)

@@ -19,7 +19,8 @@ class Screen(NamedTuple):
 
     variances: torch.Tensor  # (n,) per-feature variance Sigma_ii
     means: torch.Tensor      # (n,) per-feature mean (0 when center=False)
-    count: int               # number of observations m
+    count: int               # number of observations m (an int, or an
+                             # integer 0-d array whose dtype a registry keeps)
 
 
 def feature_variances(A: torch.Tensor, *, center: bool = True) -> Screen:

@@ -41,3 +41,11 @@ def as_tensor(x, device=None, dtype=None) -> torch.Tensor:
     if not x.flags.writeable:          # e.g. a view of a jax array
         x = x.copy()
     return torch.as_tensor(x, dtype=dtype, device=dev)
+
+
+def to_host(x) -> np.ndarray:
+    """``x`` as a numpy array; a tensor is copied to the host (for a CUDA
+    tensor that copy waits for the work that produces it)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

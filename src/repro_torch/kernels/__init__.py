@@ -7,6 +7,9 @@
   csr_stats.py      — its ctypes wrapper
   csrc/csr_gram.cu  — K3, CSR gather-Gram (one launch per megabatch)
   csr_gram.py       — its ctypes wrapper and launch plan
+  csrc/project.cu   — K4, sparse-projection gather-matvec (one launch per
+                      serving batch)
+  project.py        — its ctypes wrapper
   ref.py            — the plain PyTorch versions the kernels are held to
   ops.py            — the public wrappers (device dispatch, launch counts)
   _build.py         — nvcc build at first use

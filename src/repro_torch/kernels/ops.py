@@ -1,5 +1,5 @@
-"""Public wrappers of the port's kernels (port of the solver and CSR parts
-of ``repro.kernels.ops``).
+"""Public wrappers of the port's kernels (port of the solver, CSR and
+projection parts of ``repro.kernels.ops``).
 
 Dispatch is by device, not by a fallback: a CUDA tensor goes to the
 hand-written kernel (``impl='auto'`` or ``'cuda'``) and a failed build or
@@ -23,13 +23,13 @@ import torch
 
 from ..device import as_tensor
 from ..obs import metrics, profile
-from . import bcd_fused, csr_gram as csr_gram_kernel, csr_stats, ref
+from . import bcd_fused, csr_gram as csr_gram_kernel, csr_stats, project, ref
 from .bcd_fused import SolvePlan, plan_fused_solve
 
 __all__ = [
     "SOLVER_FAULTS", "SolvePlan", "bcd_solve", "bcd_solve_batched",
     "csr_column_stats", "csr_gram", "csr_gram_batched", "plan_fused_solve",
-    "solver_fault_after", "solver_fault_before",
+    "solver_fault_after", "solver_fault_before", "sparse_project",
 ]
 
 # Solver-fault seam (as in the reference): a test installs an injector
@@ -219,3 +219,18 @@ def csr_gram_batched(values, local_cols, seg_ids, *, n_rows: int,
     arrays, asserts the ``value 0`` padding contract."""
     return _gram("csr_gram_batched", values, local_cols, seg_ids, n_rows,
                  n_hat, impl, nnz, device, ref.csr_gram_batched_ref)
+
+
+def sparse_project(X, support_idx, values, *, impl: str = "auto"):
+    """(B, k) float32 document -> topic scores through the gather
+    representation: the serving hot path (see `serve.projector`).
+    ``X`` (B, n) float32, ``support_idx`` (k, cap) int32 and ``values``
+    (k, cap) float32 tensors on one device.  On the card: ONE launch of
+    kernel K4, reading X where it lies (no transposed copy of the batch,
+    which the TPU kernel needs and this one does not)."""
+    project.check_inputs(X, support_idx, values)
+    kernel = use_kernel(impl, X)
+    with _launch("sparse_project"):
+        if kernel:
+            return project.sparse_project_cuda(X, support_idx, values)
+        return ref.sparse_project_ref(X, support_idx, values)

@@ -282,3 +282,25 @@ def csr_gram_batched_ref(values, local_cols, seg_ids, n_rows: int,
     rows = torch.where((seg >= 0) & (seg < n_rows), seg, C * n_rows) + (
         n_rows * torch.arange(C, device=seg.device)[:, None])
     return _densify_gram(values, rows, local_cols, C * n_rows, n_hat)
+
+
+def sparse_project_ref(X, support_idx, values):
+    """Document -> topic scores through the gather representation (kernel
+    K4's plain version): ``X`` (B, n) float32, ``support_idx`` (k, cap)
+    int32 gather indices, ``values`` (k, cap) float32 loadings with 0.0 in
+    padded slots; returns (B, k) float32 with ``score[b, c] = sum_j
+    values[c, j] * X[b, support_idx[c, j]]``.
+
+    ``index_select`` on the flat indices touches only the gathered
+    columns, then each component reduces over its ``cap`` slots in slot
+    order, one multiply and one add per slot, each rounded, as the kernel
+    does; padded slots add ``0 * X[b, 0]``, which is 0 for a finite
+    X[b, 0] (the kernel skips them)."""
+    k, cap = support_idx.shape
+    g = X.index_select(1, support_idx.reshape(-1).to(torch.int64))
+    g = g.to(torch.float32).reshape(X.shape[0], k, cap)
+    v = values.to(torch.float32)
+    out = torch.zeros((X.shape[0], k), dtype=torch.float32, device=X.device)
+    for j in range(cap):
+        out = out + g[:, :, j] * v[:, j]
+    return out

@@ -131,20 +131,23 @@ def main(argv=None):
     return out
 
 
-def dense_stats(corpus, device):
-    """The dense mode's ``(variances, build)`` pair: exact variances from
-    the sparse corpus on the host, and the reduced Gram of a support as
-    one product on ``device`` (columns centred on the host, as the
-    reference does)."""
-    _, var = corpus.column_stats_exact()
-
+def gram_of_support(corpus, device):
+    """``build(support)``: the reduced Gram of a support as one product on
+    ``device`` (columns centred on the host, as the reference does)."""
     def build(support):
         A = corpus.columns_dense(np.asarray(support))
         A = A - A.mean(0, keepdims=True)
         A = torch.from_numpy(A).to(device)
         return (A.T @ A) / corpus.n_docs
 
-    return np.asarray(var), build
+    return build
+
+
+def dense_stats(corpus, device):
+    """The dense mode's ``(variances, build)`` pair: exact variances from
+    the sparse corpus on the host and `gram_of_support`'s ``build``."""
+    _, var = corpus.column_stats_exact()
+    return np.asarray(var), gram_of_support(corpus, device)
 
 
 def streaming_stats(corpus, store_dir, cfg, ingest, device):

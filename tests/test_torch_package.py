@@ -33,8 +33,8 @@ def test_port_imports_neither_jax_nor_reference():
         import numpy as np
         import repro_torch
         from repro_torch.core import SPCAConfig, fit_components
-        from repro_torch.launch import spca_run
-        from repro_torch import convert
+        from repro_torch.launch import serve_topics, spca_run
+        from repro_torch import checkpoint, convert, serve
         import chip_smoke
         rng = np.random.default_rng(0)
         X = rng.poisson(1.0, size=(200, 30)).astype(float)
@@ -72,7 +72,8 @@ def test_source_scan_finds_no_jax_or_reference_import():
 def test_entry_points_refuse_a_missing_card(monkeypatch):
     from repro_torch import device
     from repro_torch.core import fit_components, search_lambda
-    from repro_torch.launch import spca_run
+    from repro_torch.launch import serve_topics, spca_run
+    from repro_torch.serve import ModelRegistry
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     X = np.ones((10, 4))
@@ -82,6 +83,10 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
         search_lambda(X, 1)
     with pytest.raises(device.DeviceUnavailable):
         spca_run.main(["--docs", "50", "--words", "60", "--components", "1"])
+    with pytest.raises(device.DeviceUnavailable):
+        serve_topics.main(["--smoke", "--docs", "50", "--words", "60"])
+    with pytest.raises(device.DeviceUnavailable):
+        ModelRegistry(None)
     with pytest.raises(device.DeviceUnavailable):
         device.resolve("cuda:0")
     assert device.resolve("cpu").type == "cpu"
@@ -180,3 +185,58 @@ def test_csr_kernels_match_plain_versions_on_card(cuda, C, E, R, n_hat, nnz):
                                                **kw))
     close(ops.csr_gram(vals[0], cols[0], segs[0], impl="cuda", **kw),
           ops.csr_gram(vals[0], cols[0], segs[0], impl="ref", **kw))
+
+
+def _serving_pack(rng, n, k, cap, card, *, overlap=0, empty=None):
+    """A packed model in the projector's layout: component c holds
+    ``card[c]`` words (the first ``overlap`` shared by all), the rest of
+    its ``cap`` slots padding (index 0, value 0); ``empty`` is a component
+    that is all padding."""
+    sidx = np.zeros((k, cap), np.int32)
+    vals = np.zeros((k, cap), np.float32)
+    shared = rng.choice(n, size=overlap, replace=False)
+    for c in range(k):
+        if c == empty:
+            continue
+        own = rng.choice(n, size=card[c] - overlap, replace=False)
+        words = np.sort(np.concatenate([shared, own]))
+        sidx[c, :words.size] = words
+        vals[c, :words.size] = rng.normal(size=words.size)
+    return sidx, vals
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,cap,overlap,empty", [
+    (64, 8, 0, None),        # the serving shape at NYTimes width
+    (1, 8, 0, None),
+    (512, 16, 3, None),
+    (64, 8, 2, 3),
+])
+def test_sparse_project_kernel_matches_plain_version_on_card(cuda, B, cap,
+                                                             overlap, empty):
+    """K4 against its plain version at n = 102,660, k = 5: within 1e-5 of
+    the largest |score| (both sum each component's slots in slot order,
+    multiply then add, so they agree to the bit on finite input), the
+    same on a second launch, and one launch per call."""
+    from repro_torch.kernels import ops, project
+
+    n, k = 102_660, 5
+    rng = np.random.default_rng(B * cap + overlap)
+    sidx, vals = _serving_pack(rng, n, k, cap,
+                               [min(cap, 4 + c) for c in range(k)],
+                               overlap=overlap, empty=empty)
+    X = rng.poisson(0.002, size=(B, n)).astype(np.float32)
+    X[:, sidx[sidx > 0]] += rng.poisson(2.0, size=(B, int((sidx > 0).sum())))
+    X, sidx, vals = (torch.from_numpy(a).to(cuda) for a in (X, sidx, vals))
+    project.reset_launches()
+    got = ops.sparse_project(X, sidx, vals, impl="cuda")
+    again = ops.sparse_project(X, sidx, vals)
+    want = ops.sparse_project(X, sidx, vals, impl="ref")
+    torch.cuda.synchronize()
+    assert project.launches == 2
+    assert got.shape == (B, k) and got.dtype == torch.float32
+    tol = 1e-5 * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+    assert torch.equal(got, again)
+    if empty is not None:
+        assert not got[:, empty].any()

@@ -1,0 +1,105 @@
+"""The port's serving launcher (``python -m repro_torch.launch.serve_topics``)
+against the reference's (``repro.launch.serve_topics``) at the ``--smoke``
+size, on the CPU: the same PC lines (card, n_hat, lambda, variance,
+words), the same registered pack, topic histogram, trace count
+and drift verdicts, and the same registry manifest.
+
+The reference runs with x64 off, as its launcher runs from the command
+line (the tests' conftest turns x64 on; the config is switched off
+process-wide for the run, so the batcher's server thread sees it too, and
+restored after).  Timings and batch counts are not compared.
+"""
+import re
+import sys
+
+import jax
+import pytest
+
+from repro.launch import serve_topics as jserve
+from repro_torch.launch import serve_topics
+
+# timings, and the batch count: how requests coalesce into batches (a 2 ms
+# window) changes from run to run
+_TIME = re.compile(r"\(\d+\.\d+s\)|in \d+\.\d+s: \d+ docs/s  p50=\S+ p99=\S+"
+                   r"|\(\d+ batches,")
+
+
+@pytest.fixture
+def x64_off():
+    prev = jax.config.read("jax_enable_x64")
+    jax.config.update("jax_enable_x64", False)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", prev)
+
+
+def _lines(out: str, root: str) -> list[str]:
+    """The launcher's lines with timings, the batch count and the
+    registry path taken out."""
+    return [_TIME.sub("<t>", ln.replace(root, "<root>"))
+            for ln in out.splitlines() if ln.strip()]
+
+
+def test_smoke_run_matches_the_reference_launcher(tmp_path, capsys,
+                                                  monkeypatch, x64_off):
+    ref_root, port_root = str(tmp_path / "ref"), str(tmp_path / "port")
+    monkeypatch.setattr(sys, "argv", ["serve_topics", "--smoke",
+                                      "--registry", ref_root])
+    jserve.main()
+    want = _lines(capsys.readouterr().out, ref_root)
+    out = serve_topics.main(["--smoke", "--device", "cpu",
+                             "--registry", port_root])
+    got = _lines(capsys.readouterr().out, port_root)
+    assert got == want
+    assert any(ln.startswith("PC3:") for ln in got)
+    assert "ok: certificate quiet in-distribution" in got[-1]
+    # what the launcher returns agrees with what it printed
+    assert out["trace_count"] == 1 and out["served"] == 1500
+    assert out["batches"][0] >= -(-1500 // 64)
+    assert not out["drift"].triggered and out["drift_shifted"].triggered
+    assert sum(out["histogram"]) == out["served"]
+    step = "step_000000000/manifest.json"
+    assert ((tmp_path / "port" / step).read_text()
+            == (tmp_path / "ref" / step).read_text())
+
+
+def test_registry_rerun_extends_history(tmp_path, capsys):
+    """A second run on the same --registry loads the first version and
+    registers the next, as the reference launcher does."""
+    args = ["--smoke", "--device", "cpu", "--registry", str(tmp_path),
+            "--docs", "800", "--words", "600", "--components", "1",
+            "--queries", "1000"]
+    serve_topics.main(args)
+    out = serve_topics.main(args)
+    text = capsys.readouterr().out
+    assert "already holds versions [0]" in text
+    assert out["version"].version == 1
+
+
+@pytest.mark.parametrize("flag", [["--export-port", "0"],
+                                  ["--export-interval", "2"]])
+def test_unported_flags_exit_naming_roadmap_item(flag, capsys):
+    with pytest.raises(SystemExit) as e:
+        serve_topics.parse_args(["--smoke", "--device", "cpu"] + flag)
+    assert e.value.code == 2
+    assert "ROADMAP queue 1 item 10" in capsys.readouterr().err
+
+
+def test_trace_and_metrics_outputs(tmp_path, capsys):
+    import json
+
+    tr, mt = tmp_path / "t.json", tmp_path / "m.jsonl"
+    out = serve_topics.main(["--smoke", "--device", "cpu", "--docs", "800",
+                             "--words", "600", "--components", "1",
+                             "--queries", "1000", "--trace", str(tr),
+                             "--metrics", str(mt)])
+    names = {e["name"] for e in json.loads(tr.read_text())["traceEvents"]}
+    assert "serve.batch" in names
+    snap = json.loads(mt.read_text().splitlines()[-1])
+    flat = json.dumps(snap)
+    assert "kernel.launches.sparse_project" in flat
+    assert "serve.requests" in flat
+    assert sum(out["batches"]) >= 2 * 1000 // 64
+    text = capsys.readouterr().out
+    assert f"trace: {tr}" in text and f"metrics: {mt}" in text
