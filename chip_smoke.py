@@ -3,19 +3,28 @@
 
     python3 chip_smoke.py
 
-Builds the port's four CUDA kernels from the sources in this checkout
-(K1 ``bcd_fused``, K2 ``csr_stats``, K3 ``csr_gram``, K4 ``project``; one
-``nvcc`` each, all started together), holds each against its plain
-PyTorch version on the same inputs, and drives both fits of
-``repro_torch.launch.spca_run`` and the serving launcher
-``repro_torch.launch.serve_topics`` at NYTimes width (102,660 words, 5
-components, target cardinality 5):
+Builds the port's seven CUDA kernels from the sources in this checkout
+(K1 ``bcd_fused``, K2 ``csr_stats``, K3 ``csr_gram``, K4 ``project``, K5
+``variance``, K6 ``gram``, K7 ``bcd_sweep``; one ``nvcc`` each, all
+started together), holds each against its plain PyTorch version on the
+same inputs, and drives the port's paths at NYTimes width (102,660
+words, 5 components, target cardinality 5):
 
-* the dense fit at 30,000 docs, against the reference record in
+* the dense fit of ``repro_torch.launch.spca_run`` at 30,000 docs,
+  against the reference record in
   ``src/repro_torch/data/reference/spca_run_nytimes.json``; K1 is held
   to its plain version again at every shape the fits launched it with,
   and the batched solve runs at NYTimes' and PubMed's largest reduced
   sizes;
+* on the same corpus, the dense row-block pipeline
+  (``repro_torch.data.screen_and_gram_streaming`` over 256-row blocks:
+  one K5 launch a block for the screen, one K6 launch a block for the
+  Gram on the 500-word support) and the fit on its Sigma_hat, against
+  ``dense_blocks_nytimes.json`` and exact float64 statistics; and the
+  dense fit on the legacy per-row solver (``qp_impl='pallas'``: one K7
+  launch a row update) against ``spca_run_nytimes.json``; K5, K6 and K7
+  are held to their plain versions on the path's blocks and Sigma_hat
+  and timed at its shapes beside their bounds;
 * the out-of-core fit (``--streaming``) at the paper's 300,000 docs,
   from a CSR store in a temporary directory (removed at the end),
   against ``spca_run_nytimes_streaming.json``; K2 and K3 are held to
@@ -54,8 +63,10 @@ STREAM_ARGS = ["--streaming", "--corpus", "nytimes", "--docs", "300000",
 SERVE_ARGS = ["--docs", "30000", "--words", "102660", "--components", "5",
               "--target-card", "5", "--queries", "4000", "--batch", "64",
               "--device", "cuda"]
-KERNELS = ("bcd_fused", "csr_stats", "csr_gram", "project")
+KERNELS = ("bcd_fused", "csr_stats", "csr_gram", "project", "variance", "gram",
+           "bcd_sweep")
 CHUNK_ROWS, MEGABATCH = 512, 8   # the launcher's default pass geometry
+DENSE_BLOCK = 256                # rows of a dense row block (the reference's tests)
 
 
 def emit(phase, **kw):
@@ -380,9 +391,10 @@ def phase_fit(record):
     return corpus, results, counts, shapes
 
 
-def _fit_direct(corpus, solver_impl):
+def _fit_direct(corpus, solver_impl, **cfg):
     """The launcher's fit on an already generated corpus (the launcher's
-    config and Gram), through `fit_components`."""
+    config and Gram), through `fit_components`; ``cfg`` sets further
+    `SPCAConfig` fields."""
     import torch
 
     from repro_torch.core import SPCAConfig, fit_components
@@ -392,7 +404,7 @@ def _fit_direct(corpus, solver_impl):
     results = fit_components(
         None, 5, target_card=5, diagnostics=diag, device="cuda",
         cfg=SPCAConfig(max_sweeps=8, lam_search_evals=8,
-                       solver_impl=solver_impl),
+                       solver_impl=solver_impl, **cfg),
         stats=dense_stats(corpus, torch.device("cuda")))
     torch.cuda.synchronize()
     return results, diag
@@ -608,6 +620,423 @@ def phase_timing(corpus, results):
     emit("timing", **row)
     check(ok, "timing: kernel and plain version disagree at the fit shape")
     return row
+# ------------------------------------------------- dense row blocks, per-row
+
+
+U32 = 2.0 ** -24                # float32 unit roundoff
+
+
+def _gamma(m):
+    """gamma_m = m u / (1 - m u): two float32 sums of the same m terms, in
+    any two orders, differ by at most 2 gamma_m times the sum of the
+    terms' magnitudes."""
+    return m * U32 / (1 - m * U32)
+
+
+def phase_dense_blocks(record, corpus):
+    """The dense row-block pipeline at NYTimes width, with every kernel
+    count set to 0 just before and read just after: the record's lambda
+    (the exact variances' 500th), ``screen_and_gram_streaming`` over
+    ``corpus.batches(256)`` on the card (118 blocks a pass, one K5 and one
+    K6 launch a block), then the fit on its Sigma_hat in float32 (the
+    launcher's config, K1).  Held to ``dense_blocks_nytimes.json``: count,
+    support, launches, Sigma_hat's diagonal, trace and Frobenius norm, the
+    five word supports (lambdas reported); and to exact float64 statistics
+    of the corpus: the screen's variances and Sigma_hat within 4 u cancel
+    of the largest entry (u = 2^-24; cancel = max second moment / max
+    result: float32 block sums of integer counts are exact, the float64 or
+    compensated fold adds ~nothing, the float32 rounding of the variances
+    and of the means in the centring costs u each, relative to the second
+    moment).  Each pass's seconds come from this run (the second pass
+    from the moment its blocks are asked for), and so do the first and
+    the ragged last block the kernels are held to later."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.spca_experiments import NYTIMES
+    from repro_torch.core import SPCAConfig, fit_components
+    from repro_torch.core.elimination import lam_for_target_size
+    from repro_torch.data import screen_and_gram_streaming
+    from repro_torch.kernels import bcd_fused, gram, variance
+    from repro_torch.obs import metrics
+
+    dev = torch.device("cuda")
+    mean_x, var_x = corpus.column_stats_exact()
+    lam = lam_for_target_size(var_x, NYTIMES.expected_reduced_max)
+    starts, kept = [], []
+
+    def batches():
+        starts.append(time.perf_counter())
+        for b in corpus.batches(DENSE_BLOCK):
+            if len(starts) == 1 and (not kept or b.shape[0] < DENSE_BLOCK):
+                kept.append(b)
+            yield b
+
+    with metrics.use_registry() as reg:
+        for k in (variance, gram, bcd_fused):
+            k.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        S, support, screen = screen_and_gram_streaming(
+            batches, corpus.n_words, lam, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        results = fit_components(
+            S.astype(np.float32), 5, target_card=5, is_covariance=True,
+            cfg=SPCAConfig(max_sweeps=8, lam_search_evals=8), device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = {"column_stats": variance.launches, "gram": gram.launches,
+                  "bcd_fused": bcd_fused.launches,
+                  **{f"kernel.launches.{op}": reg.value(f"kernel.launches.{op}")
+                     for op in ("column_stats", "gram", "bcd_solve")}}
+    m = corpus.n_docs
+    var = screen.variances.double().cpu().numpy()
+    sec2 = np.bincount(corpus.word_idx, minlength=corpus.n_words,
+                       weights=corpus.counts.astype(np.float64) ** 2) / m
+    A = torch.from_numpy(corpus.columns_dense(support)).to(dev).double()
+    second = (A.T @ A) / m
+    A -= A.mean(0)
+    S_x = ((A.T @ A) / m).cpu().numpy()
+    del A
+    tol_v = 4 * U32 * float(sec2.max() / var_x.max())
+    tol_S = 4 * U32 * float(second.abs().max()) / float(np.abs(S_x).max())
+    e_var, e_S = _rel_err(var, var_x), _rel_err(S, S_x)
+    e_mean = _rel_err(screen.means.double().cpu(), mean_x)
+    rs = record["sigma_hat"]
+    words = [support[r.support] for r in results]
+    comps = [{"support_equal": w.tolist() == c["support"],
+              "words": [corpus.vocab[i] for i in w],
+              "n_hat": [r.reduced_n, c["reduced_n"]], "lam": [r.lam, c["lam"]],
+              "lam_rel_diff": abs(r.lam - c["lam"]) / c["lam"]}
+             for r, w, c in zip(results, words, record["fit"]["components"])]
+    same_support = support.tolist() == record["support"]
+    inf = float("inf")
+    diag_err = (_rel_err(np.diagonal(S), rs["diagonal"]) if same_support
+                else inf)
+    var_rec = (_rel_err(var[support], record["support_variances"])
+               if same_support else inf)
+    tr_err = abs(np.trace(S) - rs["trace"]) / rs["trace"]
+    fro_err = abs(np.linalg.norm(S) - rs["frobenius"]) / rs["frobenius"]
+    out = {"screen_pass_s": starts[1] - starts[0], "gram_pass_s": t1 - starts[1],
+           "pipeline_s": t1 - t0, "fit_s": t2 - t1}
+    emit("dense_blocks", **out, lam=lam, record_lam=record["lam"],
+         count=screen.count, n_hat=int(support.size), **counts,
+         record_launches=record["launches"],
+         rel_err_var=e_var, rel_err_mean=e_mean, tolerance_var=tol_v,
+         rel_err_sigma=e_S, tolerance_sigma=tol_S,
+         vs_record={"support_variances": var_rec, "diagonal": diag_err,
+                    "trace": tr_err, "frobenius": fro_err},
+         components=comps)
+    n_blocks = record["blocks"]
+    check(lam == record["lam"], "lambda differs from the record's")
+    check(screen.count == record["count"] == m, "count")
+    check(same_support, "support differs from the record")
+    check(counts["kernel.launches.column_stats"] == counts["column_stats"]
+          == counts["kernel.launches.gram"] == counts["gram"] == n_blocks
+          == record["launches"]["column_stats"] == record["launches"]["gram"],
+          "K5 / K6 launches != blocks")
+    check(e_var <= tol_v and e_mean <= tol_v, "screen vs exact statistics")
+    check(e_S <= tol_S, "Sigma_hat vs the exact float64 covariance")
+    check(max(var_rec, diag_err, tr_err, fro_err) <= 1e-6,
+          "screen / Sigma_hat differ from the record")
+    check(counts["bcd_fused"] > 0, "the fit did not launch K1")
+    check(len(kept) == 2, "the last block is not ragged")
+    check(len(results) == 5 and all(c["support_equal"] for c in comps),
+          "the fit's word supports differ from the record's")
+    return {"S": S, "support": support, "means": screen.means, "counts": counts,
+            "blocks": tuple(kept), **out}
+
+
+def phase_dense_pass_profile(corpus, dense):
+    """Where a dense pass's time goes: each pass again under
+    torch.profiler (the device's busy and idle share of its wall time, a
+    host-to-device copy counting as busy), and the host's densify alone
+    (``corpus.batches(256)`` with no device work)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import StreamingGram, StreamingStats
+
+    dev = torch.device("cuda")
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    out = {}
+    for kind in ("screen", "gram"):
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            acc = (StreamingStats(corpus.n_words, device=dev) if kind == "screen"
+                   else StreamingGram(dense["support"], device=dev))
+            for b in corpus.batches(DENSE_BLOCK):
+                acc.update(b)
+            if kind == "screen":
+                acc.finalize(dtype=torch.float32)
+            else:
+                acc.finalize(means=dense["means"].cpu().numpy())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = _device_events(prof)
+        busy = sum(e[0] for e in events)
+        out[kind] = {"profiled_s": wall, "device_busy_ms": busy,
+                     "idle_share": 1 - busy / 1e3 / wall,
+                     "top": [{"ms": ms, "count": c, "name": name}
+                             for ms, c, name in events[:4]]}
+    t0 = time.perf_counter()
+    for _ in corpus.batches(DENSE_BLOCK):
+        pass
+    out["host_densify_s"] = time.perf_counter() - t0
+    emit("dense_pass_profile", **out)
+    return out
+
+
+def _max_abs_diff(a, b):
+    return float(max((x.double() - y.double()).abs().max() for x, y in
+                     zip(a, b)))
+
+
+def phase_dense_kernel_parity(corpus, dense):
+    """K5, K6 and K7 against their plain versions on the card, each run
+    twice (the run-to-run max |diff| must be 0: no atomics, fixed orders).
+    K5 on the first and the ragged last NYTimes block, exactly (integer
+    counts: every float32 partial sum is exact), and on random float32 /
+    float64 blocks of odd shape within 2 gamma_(m+1) (sum |a|, sum a^2)
+    elementwise.  K6 on real support blocks, exactly: the first block's
+    500 support columns, the last block's, the first block's top-2048
+    variance columns, 37 rows of one column; and on random floats within
+    2 gamma_{m+1} |A|^T |A| elementwise.  K7 on row updates of the
+    pipeline's Sigma_hat (its top-n variance words, n 16 / 48 / 192 /
+    500; X = I, the first row update of a solve, and X = Sigma_hat, a
+    dense symmetric Y; j first, middle, last; 4 sweeps), each output (u,
+    w, R2) against its own largest |value|: float64 to 1e-12, float32 to
+    1e-4 (w = Y u0 and R2 are reduced in another order, ~n u relative,
+    and the clipped steps carry it)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    first, last = dense["blocks"]
+    sup = dense["support"]
+    order = np.argsort(-corpus.column_stats_exact()[1], kind="stable")
+    worst = {"column_stats": 0.0, "gram": 0.0, "qp_sweeps": 0.0}
+    rerun = dict.fromkeys(worst, 0.0)
+    rng = np.random.default_rng(14)
+    # K5
+    cases = [("first_block", first, True), ("last_block", last, True)]
+    for m, n, dt in ((255, 1001, np.float32), (49, 102_661, np.float32),
+                     (131, 333, np.float64)):
+        cases.append((f"random_{m}x{n}_{np.dtype(dt).name}",
+                      (rng.normal(size=(m, n)) * rng.lognormal(size=n)
+                       ).astype(dt), False))
+    for label, A, exact in cases:
+        Ad = torch.from_numpy(A).to(dev)
+        got = ops.column_stats(Ad, impl="cuda")
+        again = ops.column_stats(Ad, impl="cuda")
+        want = ops.column_stats(Ad, impl="ref")
+        torch.cuda.synchronize()
+        diff, rr = _max_abs_diff(got, want), _max_abs_diff(got, again)
+        A32 = Ad.float().double()
+        g = _gamma(A.shape[0] + 1)
+        bounds = (2 * g * A32.abs().sum(0), 2 * g * (A32 * A32).sum(0))
+        ratio = max(float(((x.double() - y.double()).abs() / b.clamp_min(
+            1e-300)).max()) for x, y, b in zip(got, want, bounds))
+        ok = (diff == 0.0 if exact else ratio <= 1.0) and rr == 0.0
+        emit("dense_kernel_parity", kernel="column_stats", case=label,
+             shape=list(A.shape), dtype=str(A.dtype), max_abs_diff=diff,
+             diff_over_bound=ratio, run_to_run_max_abs_diff=rr,
+             tolerance="0 (integer counts)" if exact
+             else "2 gamma_(m+1) (sum |a|, sum a^2) elementwise", ok=ok)
+        check(ok, f"column_stats parity {label}")
+        worst["column_stats"] = max(worst["column_stats"], diff)
+        rerun["column_stats"] = max(rerun["column_stats"], rr)
+    del cases
+    # K6
+    top2048 = np.sort(order[:2048])
+    cases = [("first_block_support", first[:, sup], True),
+             ("last_block_support", last[:, sup], True),
+             ("first_block_top2048", first[:, top2048], True),
+             ("first_block_37x1", first[:37, sup[:1]], True)]
+    for m, n in ((256, 500), (48, 500), (37, 1)):
+        cases.append((f"random_{m}x{n}", rng.normal(size=(m, n)).astype(
+            np.float32), False))
+    for label, A, exact in cases:
+        Ad = torch.from_numpy(np.ascontiguousarray(A)).to(dev)
+        got = ops.gram(Ad, impl="cuda")
+        again = ops.gram(Ad, impl="cuda")
+        want = ops.gram(Ad, impl="ref")
+        torch.cuda.synchronize()
+        diff, rr = _max_abs_diff([got], [want]), _max_abs_diff([got], [again])
+        Aa = Ad.double().abs()
+        bound = 2 * _gamma(A.shape[0] + 1) * (Aa.T @ Aa)
+        ratio = float(((got.double() - want.double()).abs()
+                       / bound.clamp_min(1e-300)).max())
+        ok = ((diff == 0.0 if exact else ratio <= 1.0) and rr == 0.0
+              and torch.equal(got, got.T))
+        emit("dense_kernel_parity", kernel="gram", case=label,
+             shape=list(A.shape), max_abs_diff=diff, diff_over_bound=ratio,
+             max_abs_G=float(want.abs().max()), run_to_run_max_abs_diff=rr,
+             symmetric=bool(torch.equal(got, got.T)),
+             tolerance="0 (integer counts)" if exact
+             else "2 gamma_(m+1) |A|^T|A| elementwise", ok=ok)
+        check(ok, f"gram parity {label}")
+        worst["gram"] = max(worst["gram"], diff)
+        rerun["gram"] = max(rerun["gram"], rr)
+    # K7
+    S = dense["S"]
+    top = np.argsort(-np.diagonal(S), kind="stable")
+    by_dtype = {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[-1]
+        rtol = 1e-12 if dtype == torch.float64 else 1e-4
+        for n in (16, 48, 192, 500):
+            idx = np.sort(top[:n])
+            Sn = torch.tensor(S[np.ix_(idx, idx)], dtype=dtype, device=dev)
+            for xname, X in (("X=I", torch.eye(n, dtype=dtype, device=dev)),
+                             ("X=Sigma_hat", Sn)):
+                for j in (0, n // 2, n - 1):
+                    mask = torch.ones(n, dtype=dtype, device=dev)
+                    mask[j] = 0
+                    Y = X * mask[:, None] * mask[None, :]
+                    s = Sn[:, j] * mask
+                    lam = 0.25 * float(s.abs().max())
+                    got = ops.qp_sweeps(Y, s, lam, s, j, impl="cuda")
+                    again = ops.qp_sweeps(Y, s, lam, s, j, impl="cuda")
+                    want = ops.qp_sweeps(Y, s, lam, s, j, impl="ref")
+                    torch.cuda.synchronize()
+                    diff = _max_abs_diff(got, want)
+                    rr = _max_abs_diff(got, again)
+                    # each output against its own scale: max|u|, max|w|, |R2|
+                    per = {k: (_max_abs_diff([g], [w]), float(w.abs().max()))
+                           for k, g, w in zip(("u", "w", "R2"), got, want)}
+                    ok = rr == 0.0 and all(d <= rtol * sc
+                                           for d, sc in per.values())
+                    emit("dense_kernel_parity", kernel="qp_sweeps",
+                         dtype=name, n=n, Y=xname, j=j, max_abs_diff=diff,
+                         max_abs_diff_by_output={k: d for k, (d, _)
+                                                 in per.items()},
+                         max_abs_value_by_output={k: sc for k, (_, sc)
+                                                  in per.items()},
+                         run_to_run_max_abs_diff=rr,
+                         tolerance=f"{rtol:g} of each output's largest "
+                                   "|value|", ok=ok)
+                    check(ok, f"qp_sweeps parity {name} n={n} {xname} j={j}")
+                    by_dtype[name] = max(by_dtype.get(name, 0.0), diff)
+                    rerun["qp_sweeps"] = max(rerun["qp_sweeps"], rr)
+    worst["qp_sweeps"] = max(by_dtype.values())
+    emit("dense_kernel_parity", summary=True, max_abs_diff=worst,
+         qp_sweeps_by_dtype=by_dtype, run_to_run_max_abs_diff=rerun)
+    return worst, rerun, by_dtype
+
+
+def phase_fit_per_row(record, corpus):
+    """The dense cell's fit on the legacy per-row solver path
+    (``solver_impl='jnp', qp_impl='pallas'``), with K7's and K1's counts
+    set to 0 just before and read just after: the record's supports
+    (lambdas beside the record's, not gated: ROADMAP queue 3), one K7
+    launch a row update, so ``kernel.launches.qp_sweeps`` = K7's count =
+    sum over solves of sweeps x n_hat (each eval's n_hat from its
+    ``solver.eval`` span, its sweeps from the ``solver.sweeps``
+    histogram), and no K1 launch."""
+    from repro_torch.kernels import bcd_fused, bcd_sweep
+    from repro_torch.obs import metrics, trace
+
+    with metrics.use_registry() as reg, trace.enable() as tr:
+        bcd_sweep.reset_launches()
+        bcd_fused.reset_launches()
+        t0 = time.perf_counter()
+        results, diag = _fit_direct(corpus, "jnp", qp_impl="pallas")
+        wall = time.perf_counter() - t0
+        sizes = [int(sp.attrs["n_hat"]) for sp in tr.find("solver.eval")]
+        sweeps = reg.histogram("solver.sweeps").window_samples()
+        counts = {"qp_sweeps": bcd_sweep.launches,
+                  "bcd_fused": bcd_fused.launches,
+                  "kernel.launches.qp_sweeps":
+                      reg.value("kernel.launches.qp_sweeps"),
+                  "solver.fallbacks": reg.value("solver.fallbacks")}
+    expected = sum(int(s) * n for s, n in zip(sweeps, sizes))
+    emit("fit_per_row", seconds=wall, solve_launches=diag["solve_launches"],
+         evals=len(sizes), n_hat=sizes, sweeps=[int(s) for s in sweeps],
+         expected_qp_launches=expected, **counts,
+         components=_vs_record(results, record["fit"]))
+    check(_same_supports(results, record["fit"]),
+          "per-row fit's supports differ from the record")
+    check(len(sizes) == len(sweeps) == diag["solve_launches"] > 0,
+          "one solve per eval")
+    check(counts["qp_sweeps"] == counts["kernel.launches.qp_sweeps"]
+          == expected > 0, "K7 launches != sum of sweeps x n_hat")
+    check(counts["bcd_fused"] == 0, "the per-row fit launched K1")
+    return counts
+
+
+def phase_dense_timing(corpus, dense):
+    """K5, K6 and K7 at the path's shapes, ms per launch by CUDA events,
+    beside the bound (the larger of bytes over 3.35 TB/s and operations
+    over 67 TFLOP/s, float32 outside the tensor cores), the plain
+    version's ms and the library call's: K5 at (256, 102,660) on the first
+    block (105 MB, beyond L2: every launch reads HBM), library ``A.sum(0)``
+    + ``(A * A).sum(0)``; K6 at (256, 500) on the first block's support
+    columns and at (256, 2048), library ``A.T @ A`` with TF32 off, its
+    operations those of the upper triangle C is mirrored from (m k (k + 1):
+    a multiply and an add for each of k (k + 1) / 2 entries and m rows);
+    K7 at n 48 and 192 on a dense row update (Y = Sigma_hat's top-n block
+    with row/col 0 zeroed, 4 sweeps, float32), no library call."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import bcd_sweep, gram, ref, variance
+
+    dev = torch.device("cuda")
+    first = dense["blocks"][0]
+    rows = {}
+
+    def row(name, ms, plain, lib, nbytes, ops, **kw):
+        tb, to = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_FLOPS * 1e3
+        r = {"name": name, "ms": ms, "plain_ms": plain, "library_ms": lib,
+             "bound_ms": max(tb, to),
+             "bound_by": "bytes" if tb >= to else "operations",
+             "bytes": nbytes, "ops": ops, **kw}
+        emit("dense_timing", **r)
+        return r
+
+    A = torch.from_numpy(first).to(dev)
+    m, n = A.shape
+    rows["column_stats"] = row(
+        "column_stats", cuda_ms(lambda: variance.column_stats_cuda(A), 20),
+        cuda_ms(lambda: ref.column_stats_ref(A), 20),
+        cuda_ms(lambda: (A.sum(0), (A * A).sum(0)), 20),
+        m * n * 4 + 2 * n * 4, 3 * m * n, shape=[m, n],
+        library="A.sum(0) + (A * A).sum(0)")
+    del A
+    order = np.argsort(-corpus.column_stats_exact()[1], kind="stable")
+    for label, cols in (("gram", dense["support"]),
+                        ("gram_2048", np.sort(order[:2048]))):
+        B = torch.from_numpy(np.ascontiguousarray(first[:, cols])).to(dev)
+        m, k = B.shape
+        with ref.full_fp32():
+            lib = cuda_ms(lambda: B.T @ B, 50)
+        rows[label] = row(
+            label, cuda_ms(lambda: gram.gram_cuda(B), 50),
+            cuda_ms(lambda: ref.gram_ref(B), 50), lib,
+            (m * k + k * k) * 4, m * k * (k + 1), shape=[m, k],
+            library="A.T @ A, TF32 off")
+    S = dense["S"]
+    top = np.argsort(-np.diagonal(S), kind="stable")
+    for n in (48, 192):
+        idx = np.sort(top[:n])
+        Y = torch.tensor(S[np.ix_(idx, idx)], dtype=torch.float32, device=dev)
+        s = Y[:, 0].clone()
+        Y[0, :] = 0
+        Y[:, 0] = 0
+        s[0] = 0
+        lam = 0.25 * float(s.abs().max())
+        ms = cuda_ms(lambda: bcd_sweep.qp_sweep_cuda(Y, s, lam, s, 0, 4), 50)
+        plain = cuda_ms(lambda: ref.qp_sweep_ref(Y, s, lam, s, 0, 4), 2)
+        ops = 2 * n * n + 4 * (n - 1) * (2 * n + 10) + 2 * n
+        rows[f"qp_sweeps_n{n}"] = row(
+            f"qp_sweeps_n{n}", ms, plain, None, (n * n + 4 * n + 1) * 4, ops,
+            n=n, sweeps=4, chain_steps=4 * (n - 1), library=None)
+    return rows
+
 # ---------------------------------------------------------------- streaming
 
 
@@ -1269,6 +1698,8 @@ def main():
         ref_dir, "spca_run_nytimes_streaming.json")))
     vrecord = json.load(open(os.path.join(ref_dir,
                                           "serve_topics_nytimes.json")))
+    drecord = json.load(open(os.path.join(ref_dir,
+                                          "dense_blocks_nytimes.json")))
 
     phase_env()
     # slice (a): the dense fit and K1
@@ -1284,7 +1715,15 @@ def main():
     row = phase_timing(corpus, results)
     worst["float32"] = max(worst["float32"], row["max_abs_dX"])
     phase_profile(corpus)
-    del corpus
+    # slice (d): the dense row-block pipeline (K5, K6) and the per-row
+    # solver (K7), on the dense cell's corpus
+    dense = phase_dense_blocks(drecord, corpus)
+    phase_dense_pass_profile(corpus, dense)
+    d_worst, d_rerun, k7_by_dtype = phase_dense_kernel_parity(corpus, dense)
+    row_counts = phase_fit_per_row(record, corpus)
+    drow = phase_dense_timing(corpus, dense)
+    dense_counts = dense["counts"]
+    del corpus, dense
     # slice (b): the out-of-core fit and K2, K3
     import numpy as np
 
@@ -1338,6 +1777,22 @@ def main():
         "ms": p64["ms"], "plain_ms": p64["plain_ms"],
         "bound_ms": p64["bound_ms"], "bound_by": p64["bound_by"],
         "library_ms": p64["library_ms"]})
+    for name, replaces, launches, t in (
+            ("column_stats", "src/repro/kernels/variance.py:19",
+             dense_counts["column_stats"], drow["column_stats"]),
+            ("gram", "src/repro/kernels/gram.py:18", dense_counts["gram"],
+             drow["gram"]),
+            ("qp_sweeps", "src/repro/kernels/bcd_sweep.py:30",
+             row_counts["qp_sweeps"], drow["qp_sweeps_n192"])):
+        source = {"column_stats": "variance", "gram": "gram",
+                  "qp_sweeps": "bcd_sweep"}[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": d_worst[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     emit("kernels", table=[
         {**kernels[0], "replaces_also": "src/repro/kernels/bcd_fused.py:197",
          "max_abs_err_by_dtype": worst, "chaotic_case_max_abs_dX": chaotic_dX},
@@ -1351,6 +1806,17 @@ def main():
         {**kernels[3], "run_to_run_max_abs_diff": p_rerun,
          "library": p64["library"],
          "batch_512": {k: prow[512][k] for k in (
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}},
+        {**kernels[4], "run_to_run_max_abs_diff": d_rerun["column_stats"],
+         "library": drow["column_stats"]["library"],
+         "shape": drow["column_stats"]["shape"]},
+        {**kernels[5], "run_to_run_max_abs_diff": d_rerun["gram"],
+         "library": drow["gram"]["library"], "shape": drow["gram"]["shape"],
+         "n_hat_2048": {k: drow["gram_2048"][k] for k in (
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}},
+        {**kernels[6], "run_to_run_max_abs_diff": d_rerun["qp_sweeps"],
+         "max_abs_err_by_dtype": k7_by_dtype, "n": 192,
+         "n_48": {k: drow["qp_sweeps_n48"][k] for k in (
              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}])
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

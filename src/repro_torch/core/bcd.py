@@ -18,7 +18,11 @@ Two solver programs, chosen by ``solver_impl``:
   sweeps are plain row updates; on the card each sweep is one launch of
   the fused kernel with the early exit off, so the plain Python loop never
   runs on the card's main path (the supervisor's fallback re-solves run
-  here).
+  here).  ``qp_impl='pallas'`` (the reference's name for its legacy
+  per-row kernel, kept so a config dict carries across) makes each sweep
+  n row updates instead, each solving its box QP through `kernels.ops.
+  qp_sweeps`: ONE launch of kernel K7 a row on the card, its plain
+  version on the CPU.
 * ``'fused'`` — ONE launch of the hand-written CUDA kernel per solve
   (`kernels.ops.bcd_solve`), stopping on the barrier-free F(X);
   ``'fused_ref'`` runs the kernel's plain version instead.
@@ -138,9 +142,10 @@ def solve_tau(R2, c, beta, iters: int = 80, dtype=torch.float64) -> float:
 
 
 def row_update(X, Sigma, lam, beta, j: int, qp_sweeps: int,
-               tau_iters: int = 80):
+               tau_iters: int = 80, qp_impl: str = "jnp"):
     """Update row/column ``j`` of ``X`` (steps 4-6 of Algorithm 1); returns
-    the new X."""
+    the new X.  ``qp_impl='pallas'`` solves the box QP through
+    `kernels.ops.qp_sweeps` (kernel K7 on the card)."""
     n = X.shape[0]
     ft = kref.np_scalar(X.dtype)
     mask = torch.ones(n, dtype=X.dtype, device=X.device)
@@ -149,7 +154,13 @@ def row_update(X, Sigma, lam, beta, j: int, qp_sweeps: int,
     s = Sigma[:, j] * mask
     t = ft(torch.trace(Y).item())
     c = ft(Sigma[j, j].item()) - ft(lam) - t
-    _, w, R2 = kref.box_qp(Y, s, lam, s, j, qp_sweeps)
+    if qp_impl == "pallas":
+        from ..kernels import ops as kernel_ops
+
+        _, w, R2 = kernel_ops.qp_sweeps(Y, s, lam, s, j, sweeps=qp_sweeps)
+        R2 = ft(R2.item())
+    else:
+        _, w, R2 = kref.box_qp(Y, s, lam, s, j, qp_sweeps)
     tau = kref.solve_tau(R2, c, ft(beta), tau_iters)
     y = w / float(tau)                          # zero at j
     Y[:, j] = y
@@ -158,22 +169,25 @@ def row_update(X, Sigma, lam, beta, j: int, qp_sweeps: int,
     return Y
 
 
-def _sweep(X, Sigma, lam, beta, qp_sweeps, tau_iters):
-    """One sweep of n row updates.  On the card it is ONE launch of the
-    fused kernel with the early exit off (the plain row loop never runs on
-    the card's main path); on the CPU, the plain row updates."""
-    if X.is_cuda:
+def _sweep(X, Sigma, lam, beta, qp_sweeps, tau_iters, qp_impl="jnp"):
+    """One sweep of n row updates.  On the card with ``qp_impl='jnp'`` it
+    is ONE launch of the fused kernel with the early exit off (the plain
+    row loop never runs on the card's main path); otherwise the row
+    updates one by one (with ``'pallas'``, one K7 launch a row on the
+    card)."""
+    if X.is_cuda and qp_impl == "jnp":
         from ..kernels import bcd_fused
 
         return bcd_fused.bcd_solve_cuda(
             Sigma, lam, beta, X, -1.0, max_sweeps=1, qp_sweeps=qp_sweeps,
             tau_iters=tau_iters)[0]
     for j in range(X.shape[0]):
-        X = row_update(X, Sigma, lam, beta, j, qp_sweeps, tau_iters)
+        X = row_update(X, Sigma, lam, beta, j, qp_sweeps, tau_iters, qp_impl)
     return X
 
 
-def _solve_bcd(Sigma, lam, beta, X0, max_sweeps, qp_sweeps, tol, tau_iters):
+def _solve_bcd(Sigma, lam, beta, X0, max_sweeps, qp_sweeps, tol, tau_iters,
+               qp_impl="jnp"):
     """The whole-matrix program: sweeps until the augmented objective (6)
     is sweep-to-sweep stationary, tested on the host between sweeps."""
     ft = kref.np_scalar(Sigma.dtype)
@@ -189,7 +203,7 @@ def _solve_bcd(Sigma, lam, beta, X0, max_sweeps, qp_sweeps, tol, tau_iters):
     k = 0
     done = False
     while not done and k < max_sweeps:
-        X = _sweep(X, Sigma, lam, beta, qp_sweeps, tau_iters)
+        X = _sweep(X, Sigma, lam, beta, qp_sweeps, tau_iters, qp_impl)
         obj = augmented_objective(X, Sigma, lam_t, beta_t)
         obj_s = ft(obj.item())
         hist[k] = obj
@@ -216,6 +230,12 @@ def _resolve_solver_impl(solver_impl: str, device) -> str:
     return solver_impl
 
 
+def check_qp_impl(qp_impl: str) -> None:
+    """Refuse an unknown inner-QP backend of the 'jnp' program."""
+    if qp_impl not in ("jnp", "pallas"):
+        raise ValueError(f"unknown qp_impl {qp_impl!r} (jnp | pallas)")
+
+
 def default_beta(Sigma) -> float:
     """The logdet barrier weight ``1e-4 Tr(Sigma) / n`` (eps/n-style)."""
     return 1e-4 * float(torch.trace(Sigma)) / Sigma.shape[0]
@@ -239,13 +259,12 @@ def solve_bcd(
 
     ``solver_impl``: 'jnp' (the whole-matrix program), 'fused' (ONE CUDA kernel
     launch for the whole solve), 'fused_ref' (its plain version) or 'auto'
-    (fused on CUDA, jnp on the CPU).  ``qp_impl`` other than 'jnp' (the
-    reference's legacy per-row TPU kernel) is not ported yet.
+    (fused on CUDA, jnp on the CPU).  ``qp_impl`` is the 'jnp' program's
+    inner-QP backend: 'jnp' or 'pallas' (the legacy per-row path, one K7
+    launch a row update on the card); the fused impls ignore it, as the
+    reference's do.
     """
-    if qp_impl != "jnp":
-        raise NotImplementedError(
-            f"qp_impl={qp_impl!r} (the per-row kernel K7) is not ported yet: "
-            "ROADMAP queue 1 item 13")
+    check_qp_impl(qp_impl)
     n = Sigma.shape[0]
     if beta is None:
         beta = default_beta(Sigma)
@@ -275,7 +294,7 @@ def solve_bcd(
         )
     with trace.span("solver.solve", n=n, impl=impl):
         res = _solve_bcd(Sigma, lam, beta, X0, max_sweeps, qp_sweeps, tol,
-                         tau_iters)
+                         tau_iters, qp_impl)
         trace.device_sync(res.X)
     return res._replace(beta=float(beta))
 

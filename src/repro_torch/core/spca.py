@@ -69,7 +69,7 @@ class SPCAConfig:
     lam_search_evals: int = 12
     card_slack: int = 2          # accept cardinality in [target, target+slack]
     tau_iters: int = 80
-    qp_impl: str = "jnp"
+    qp_impl: str = "jnp"         # 'jnp' | 'pallas' (per-row kernel K7)
     solver_impl: str = "auto"    # 'auto' | 'jnp' | 'fused' | 'fused_ref'
     reuse_covariance: bool = True
     warm_start: bool = True
@@ -114,13 +114,12 @@ def check_config(cfg: SPCAConfig) -> None:
         "mesh_devices": (cfg.mesh_devices > 1, "queue 1 item 12 (mesh)"),
         "lam_grid_probe": (cfg.lam_grid_probe > 1,
                            "queue 1 item 15 (grid probe)"),
-        "qp_impl": (cfg.qp_impl != "jnp",
-                    "queue 1 item 13 (per-row kernel K7)"),
     }
     for name, (on, item) in todo.items():
         if on:
             raise NotImplementedError(
                 f"SPCAConfig.{name} is not ported yet: ROADMAP {item}")
+    bcd.check_qp_impl(cfg.qp_impl)
     if cfg.panel_rows:
         raise ValueError("SPCAConfig.panel_rows is the TPU tiled kernel's "
                          "Sigma panel height; the Hopper kernel has none")

@@ -1,4 +1,4 @@
-"""Streaming bag-of-words statistics, CSR legs (port of ``repro.data.bow``).
+"""Streaming bag-of-words statistics (port of ``repro.data.bow``).
 
 The corpora the paper targets do not fit in memory, so both pipeline
 passes are streaming, single-pass, batch-at-a-time:
@@ -6,15 +6,19 @@ passes are streaming, single-pass, batch-at-a-time:
   StreamingStats  — per-word sum/sumsq for the Thm 2.1 variance screen
   StreamingGram   — A_S^T A_S on the post-elimination support
 
-Each accumulator folds fixed-shape padded chunks of the sharded store
-(`repro_torch.sparse.store`) through the CSR kernels of `kernels.ops`:
+Each accumulator has three input legs sharing one accumulator state,
+each through a kernel of `kernels.ops`:
 
-  update_csr(chunk)       — one `CSRChunk`;
+  update(block)           — a dense (rows, n) row block (what
+                            `Corpus.batches` yields): ONE launch of the
+                            dense kernel K5 (screen) or K6 (Gram);
+  update_csr(chunk)       — one `CSRChunk` of the sharded store
+                            (`repro_torch.sparse.store`);
   update_csr_batch(mb)    — a `CSRMegaBatch` of C chunks with ONE kernel
-                            launch (the ingest hot path).
+                            launch (the out-of-core ingest hot path).
 
-The dense row-block leg ``update`` needs the dense kernels K5/K6 (ROADMAP
-queue 1 item 11) and raises until they are ported.
+`screen_and_gram_streaming` is the two-pass pipeline over dense row
+blocks.
 
 State lives on the accumulator's ``device`` (the card by default): the
 screen's sums fold there in float64 (the same IEEE additions the
@@ -30,12 +34,9 @@ import zlib
 import numpy as np
 import torch
 
-from ..core.elimination import Screen
+from ..core.elimination import Screen, select_support
 from ..device import resolve
 from ..kernels import ops
-
-_DENSE_LEG = ("the dense row-block leg needs kernels K5/K6, not ported "
-              "yet: ROADMAP queue 1 item 11 (dense-block leg)")
 
 
 def local_support_cols(support: np.ndarray, col_ids: np.ndarray) -> np.ndarray:
@@ -62,8 +63,8 @@ class StreamingAccumulator:
     _acc_fields: tuple[str, ...] = ()
 
     def update(self, batch) -> "StreamingAccumulator":
-        """Fold in a dense (rows, n) row block (not ported yet)."""
-        raise NotImplementedError(_DENSE_LEG)
+        """Fold in a dense (rows, n) row block."""
+        raise NotImplementedError
 
     def update_csr(self, chunk) -> "StreamingAccumulator":
         """Fold in a `sparse.store.CSRChunk` (fixed-shape, padded)."""
@@ -123,6 +124,16 @@ class StreamingStats(StreamingAccumulator):
         self.sum += s.to(torch.float64)
         self.sumsq += ss.to(torch.float64)
 
+    def update(self, batch) -> "StreamingStats":
+        """A dense (rows, n) block (numpy or tensor) -> ONE launch of K5;
+        its float32 sums fold into the float64 state as the CSR legs'
+        do."""
+        s, ss = ops.column_stats(batch, impl=self.impl, device=self.device)
+        self.sum += s.to(device=self.device, dtype=torch.float64)
+        self.sumsq += ss.to(device=self.device, dtype=torch.float64)
+        self.count += batch.shape[0]
+        return self
+
     def update_csr(self, chunk) -> "StreamingStats":
         self._fold(chunk.values, chunk.col_ids, chunk.nnz)
         self.count += chunk.n_rows   # empty rows count, padded slots don't
@@ -143,10 +154,12 @@ class StreamingStats(StreamingAccumulator):
                 "count": np.asarray(self.count, np.int64)}
 
     def load_state(self, state: dict) -> "StreamingStats":
-        self.sum = torch.as_tensor(np.asarray(state["sum"], np.float64),
-                                   device=self.device).clone()
-        self.sumsq = torch.as_tensor(np.asarray(state["sumsq"], np.float64),
-                                     device=self.device).clone()
+        # torch.tensor copies: the state may be a read-only view (e.g. of
+        # a jax array)
+        self.sum = torch.tensor(np.asarray(state["sum"]), dtype=torch.float64,
+                                device=self.device)
+        self.sumsq = torch.tensor(np.asarray(state["sumsq"]),
+                                  dtype=torch.float64, device=self.device)
         self.count = int(state["count"])
         return self
 
@@ -206,6 +219,22 @@ class StreamingGram(StreamingAccumulator):
                                             (delta - t) + self.g)
         self.g = t
 
+    def update(self, batch) -> "StreamingGram":
+        """A dense (rows, n) block (numpy or tensor) -> ONE launch of K6 on
+        its support columns.  Those are gathered where the block lies: a
+        host block before its copy (rows x n_hat values, not the block), a
+        tensor by ``index_select`` on its device; the values are the
+        reference's device-side gather's either way."""
+        if self.support.size:
+            if isinstance(batch, torch.Tensor):
+                idx = torch.as_tensor(self.support, device=batch.device)
+                cols = batch.index_select(1, idx)
+            else:
+                cols = np.ascontiguousarray(np.asarray(batch)[:, self.support])
+            self._acc(ops.gram(cols, impl=self.impl, device=self.device))
+        self.count += batch.shape[0]
+        return self
+
     def _local_cols(self, col_ids: np.ndarray) -> np.ndarray:
         return local_support_cols(self.support, col_ids)
 
@@ -260,12 +289,11 @@ class StreamingGram(StreamingAccumulator):
         return d
 
     def load_state(self, state: dict) -> "StreamingGram":
-        self.g = torch.as_tensor(np.asarray(state["g"]), dtype=self.g.dtype,
-                                 device=self.device).clone()
+        self.g = torch.tensor(np.asarray(state["g"]), dtype=self.g.dtype,
+                              device=self.device)
         if self._err is not None:
-            self._err = (torch.as_tensor(np.asarray(state["err"]),
-                                         dtype=self.g.dtype,
-                                         device=self.device).clone()
+            self._err = (torch.tensor(np.asarray(state["err"]),
+                                      dtype=self.g.dtype, device=self.device)
                          if "err" in state else torch.zeros_like(self.g))
         self.count = int(state["count"])
         return self
@@ -290,3 +318,34 @@ class StreamingGram(StreamingAccumulator):
             mu = np.asarray(means)[self.support]
             g = g - m * np.outer(mu, mu)
         return g / m
+
+
+def screen_and_gram_streaming(batches, n_features: int, lam: float, *,
+                              center: bool = True, impl: str = "auto",
+                              max_reduced: int = 2048,
+                              acc_dtype=torch.float32, device=None):
+    """Two-pass pipeline over a re-iterable source of dense row blocks
+    (``batches()`` yields (rows, n_features) numpy arrays or tensors, e.g.
+    ``lambda: corpus.batches(256)``): pass 1 the variance screen (one K5
+    launch a block), then `select_support` at ``lam``, pass 2 the reduced
+    Gram on the support (one K6 launch a block).  Returns ``(Sigma_hat,
+    support, screen)``: Sigma_hat a float64 host array, the screen's
+    tensors on ``device`` (the card by default).
+
+    ``acc_dtype`` stands in for the reference's global x64 flag, as in
+    `sparse.engine`: float32 (the default) gives the screen in float32 and
+    a compensated float32 Gram, as the reference with x64 off; float64
+    gives both in float64, as the reference under x64."""
+    stats = StreamingStats(n_features, impl=impl, device=device)
+    for b in batches():
+        stats.update(b)
+    screen = stats.finalize(center=center, dtype=acc_dtype)
+    support = select_support(screen.variances.cpu().numpy(), lam,
+                             max_reduced)
+    gram = StreamingGram(support, impl=impl, acc_dtype=acc_dtype,
+                         device=device)
+    for b in batches():
+        gram.update(b)
+    Sigma_hat = gram.finalize(
+        means=screen.means.cpu().numpy() if center else None)
+    return Sigma_hat, support, screen

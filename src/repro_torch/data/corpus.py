@@ -1,7 +1,7 @@
 """Synthetic bag-of-words corpora with NYTimes/PubMed-scale dimensions.
 
-Port of ``repro.data.corpus`` (numpy only, the parts the dense launcher
-uses): the same seed gives the same corpus bit for bit in both packages.
+Port of ``repro.data.corpus`` (numpy only, the parts the launchers and
+the dense row-block pipeline use): the same seed gives the same corpus bit for bit in both packages.
 
 The UCI files the paper uses (NYTimes: 300k docs x 102,660 words, 1 GB;
 PubMed: 8.2M docs x 141,043 words, 7.8 GB) are not available offline, so we
@@ -79,6 +79,23 @@ class Corpus:
         mean = s / m
         var = np.maximum(ss / m - mean**2, 0.0)
         return mean, var
+
+    def batches(self, batch_docs: int):
+        """Yield dense (<=batch_docs, n_words) float32 row blocks in doc
+        order: the dense streaming interface the column-stats (K5) and
+        Gram (K6) kernels consume."""
+        order = np.argsort(self.doc_idx, kind="stable")
+        di, wi, ct = self.doc_idx[order], self.word_idx[order], self.counts[order]
+        starts = np.searchsorted(di, np.arange(0, self.n_docs + batch_docs, batch_docs))
+        for b in range(len(starts) - 1):
+            lo, hi = starts[b], starts[b + 1]
+            rows = di[lo:hi] - b * batch_docs
+            n_rows = min(batch_docs, self.n_docs - b * batch_docs)
+            if n_rows <= 0:
+                break
+            X = np.zeros((n_rows, self.n_words), np.float32)
+            np.add.at(X, (rows, wi[lo:hi]), ct[lo:hi])
+            yield X
 
     def columns_dense(self, word_ids: np.ndarray) -> np.ndarray:
         """Materialise only the selected columns (n_docs, k) — the

@@ -10,6 +10,13 @@
   csrc/project.cu   — K4, sparse-projection gather-matvec (one launch per
                       serving batch)
   project.py        — its ctypes wrapper
+  csrc/variance.cu  — K5, dense column stats (one launch per row block)
+  variance.py       — its ctypes wrapper
+  csrc/gram.cu      — K6, dense Gram A^T A (one launch per row block)
+  gram.py           — its ctypes wrapper
+  csrc/bcd_sweep.cu — K7, box-QP coordinate descent of one row update (one
+                      launch per row update: the legacy per-row solver)
+  bcd_sweep.py      — its ctypes wrapper
   ref.py            — the plain PyTorch versions the kernels are held to
   ops.py            — the public wrappers (device dispatch, launch counts)
   _build.py         — nvcc build at first use

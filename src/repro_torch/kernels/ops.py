@@ -1,5 +1,4 @@
-"""Public wrappers of the port's kernels (port of the solver, CSR and
-projection parts of ``repro.kernels.ops``).
+"""Public wrappers of the port's kernels (port of ``repro.kernels.ops``).
 
 Dispatch is by device, not by a fallback: a CUDA tensor goes to the
 hand-written kernel (``impl='auto'`` or ``'cuda'``) and a failed build or
@@ -8,10 +7,14 @@ launch raises; a CPU tensor goes to the kernel's plain version in
 and ``impl='cuda'`` on a CPU tensor raises.  Every call counts one
 ``kernel.launches.<op>`` dispatch in the metrics registry.
 
-The CSR wrappers also take the store's host arrays (numpy, often views
-into `sparse.store.SparseCorpus.iter_megabatches`' buffer ring): they go
-to ``device`` (the card by default) by a blocking copy that has finished
-when the wrapper returns, so the caller may reuse the buffer at once.
+The CSR and dense-block wrappers also take host arrays (numpy: the
+store's megabatches, often views into
+`sparse.store.SparseCorpus.iter_megabatches`' buffer ring, or
+`data.corpus.Corpus.batches`' row blocks): they go to ``device`` (the
+card by default) by a blocking copy that has finished when the wrapper
+returns, so the caller may reuse the buffer at once.  The dense wrappers
+take no TPU block sizes (``block_m`` ... ``block_k``): the Hopper kernels
+tile themselves.
 The reference's ``'host'`` numpy/scipy backend has no counterpart: it
 exists there only because XLA's CPU scatter is a sequential loop, and
 torch's ``index_add_`` on the CPU is not.
@@ -23,12 +26,15 @@ import torch
 
 from ..device import as_tensor
 from ..obs import metrics, profile
-from . import bcd_fused, csr_gram as csr_gram_kernel, csr_stats, project, ref
+from . import bcd_fused, bcd_sweep, csr_gram as csr_gram_kernel, csr_stats
+from . import gram as gram_kernel
+from . import project, ref, variance
 from .bcd_fused import SolvePlan, plan_fused_solve
 
 __all__ = [
     "SOLVER_FAULTS", "SolvePlan", "bcd_solve", "bcd_solve_batched",
-    "csr_column_stats", "csr_gram", "csr_gram_batched", "plan_fused_solve",
+    "column_stats", "column_variances", "csr_column_stats", "csr_gram",
+    "csr_gram_batched", "gram", "plan_fused_solve", "qp_sweeps",
     "solver_fault_after", "solver_fault_before", "sparse_project",
 ]
 
@@ -138,6 +144,53 @@ def bcd_solve_batched(Sigmas, lams, betas, X0s, n_valids, *,
             )
     return solver_fault_after("bcd_solve_batched", out,
                               max_sweeps=max_sweeps)
+
+
+def qp_sweeps(Y, s, lam, u0, j, *, sweeps: int = 4, impl: str = "auto"):
+    """Box-QP coordinate descent (11)+(13) for one BCD row update, the
+    inner loop of the legacy per-row solver (``qp_impl='pallas'``):
+    ``(u, w = Y u, R2 = u^T w)`` as tensors.  On the card: ONE launch of
+    kernel K7, which takes Y symmetric (see `kernels.bcd_sweep`)."""
+    kernel = use_kernel(impl, Y)
+    with _launch("qp_sweeps"):
+        if kernel:
+            return bcd_sweep.qp_sweep_cuda(Y, s, lam, u0, j, sweeps)
+        return ref.qp_sweep_ref(Y, s, lam, u0, j, sweeps)
+
+
+def column_stats(A, *, impl: str = "auto", device=None):
+    """``(col_sum, col_sumsq)``, (n,) float32, of a dense (m, n) row block
+    (float32 or float64): the dense leg of the Thm 2.1 screen.  On the
+    card: ONE launch of kernel K5.  A host array goes to ``device``
+    first."""
+    A = as_tensor(A, device if not isinstance(A, torch.Tensor) else None)
+    kernel = use_kernel(impl, A)
+    with _launch("column_stats"):
+        if kernel:
+            return variance.column_stats_cuda(A)
+        return ref.column_stats_ref(A)
+
+
+def column_variances(A, *, impl: str = "auto", device=None):
+    """``(mean, var)`` of a dense (m, n) block from one `column_stats`
+    pass."""
+    m = A.shape[0]
+    s, ss = column_stats(A, impl=impl, device=device)
+    mean = s / m
+    return mean, torch.clamp(ss / m - mean * mean, min=0.0)
+
+
+def gram(A, *, impl: str = "auto", device=None):
+    """``A^T A``, (n, n) float32, of a dense (m, n) block (cast to
+    float32, as the reference's oracle does): the dense leg of the
+    reduced Gram.  On the card: ONE launch of kernel K6.  A host array
+    goes to ``device`` first."""
+    A = as_tensor(A, device if not isinstance(A, torch.Tensor) else None)
+    kernel = use_kernel(impl, A)
+    with _launch("gram"):
+        if kernel:
+            return gram_kernel.gram_cuda(A.to(torch.float32))
+        return ref.gram_ref(A)
 
 
 def _assert_csr_padding(values, nnz) -> None:

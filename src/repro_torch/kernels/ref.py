@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the port's kernels (port of the BCD and CSR
-parts of ``repro.kernels.ref``).
+"""Plain PyTorch versions of the port's kernels (port of
+``repro.kernels.ref``).
 
 These are the kernels' plain versions: the CPU tests run them, `ops` takes
 them for a tensor that lies on the CPU (or for ``impl='ref'``), and
@@ -227,6 +227,23 @@ def full_fp32():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def column_stats_ref(A):
+    """Per-column (sum, sum of squares), (n,) float32 each, of a dense
+    (m, n) block accumulated in float32 (kernel K5's plain version; the
+    semantics of ``repro.kernels.ref.column_stats_ref``)."""
+    A32 = A.to(torch.float32)
+    return A32.sum(0), (A32 * A32).sum(0)
+
+
+def gram_ref(A):
+    """``C = A^T A``, (n, n) float32, of a dense (m, n) block in full
+    float32, TF32 off (kernel K6's plain version; the semantics of
+    ``repro.kernels.ref.gram_ref``)."""
+    A32 = A.to(torch.float32)
+    with full_fp32():
+        return A32.T @ A32
 
 
 def csr_column_stats_ref(values, col_ids, n: int):

@@ -182,3 +182,43 @@ def test_auto_resolves_by_device():
     assert tbcd._resolve_solver_impl("fused_ref", "cuda") == "fused_ref"
     with pytest.raises(ValueError):
         tbcd._resolve_solver_impl("pallas", "cpu")
+
+
+@pytest.mark.parametrize("n", [8, 20])
+def test_solve_bcd_per_row_path_matches_reference(n):
+    """``qp_impl='pallas'`` on the 'jnp' program: one ``ops.qp_sweeps``
+    call a row update (the reference's per-row kernel, interpret mode),
+    float64, to the 'jnp' program's bound."""
+    S = _cov(n, seed=3 * n)
+    kw = dict(max_sweeps=4, qp_sweeps=3, tol=1e-9, qp_impl="pallas",
+              solver_impl="jnp")
+    j = jbcd.solve_bcd(jnp.asarray(S), _lam(S), **kw)
+    with metrics.use_registry() as reg:
+        t = tbcd.solve_bcd(torch.tensor(S), _lam(S), **kw)
+        assert reg.value("kernel.launches.qp_sweeps") == int(t.sweeps) * n
+    assert int(t.sweeps) == int(j.sweeps)
+    for name in ("X", "obj", "phi", "history"):
+        np.testing.assert_allclose(getattr(t, name).numpy(),
+                                   np.asarray(getattr(j, name)),
+                                   rtol=1e-10, atol=1e-10, err_msg=name)
+
+
+def test_supervised_per_row_fallback_keeps_qp_impl():
+    """A stalled fused solve's re-solve runs the 'jnp' program with the
+    caller's ``qp_impl``: the per-row path, counted by its dispatches."""
+    S, lam = _stalling_problem()
+    kw = dict(max_sweeps=2, qp_sweeps=2, tol=1e-12)
+    with metrics.use_registry() as reg:
+        res, fb = tbcd.solve_bcd_supervised(S, lam, solver_impl="fused_ref",
+                                            qp_impl="pallas", **kw)
+        assert fb == 1
+        assert reg.value("kernel.launches.qp_sweeps") == 2 * 12
+    plain = tbcd.solve_bcd(S, lam, solver_impl="jnp", **kw)
+    assert torch.equal(res.X, plain.X)
+
+
+@pytest.mark.parametrize("solve", [tbcd.solve_bcd, tbcd.solve_bcd_supervised])
+def test_unknown_qp_impl_is_a_value_error(solve):
+    S, lam = _stalling_problem()
+    with pytest.raises(ValueError, match="unknown qp_impl 'palas'"):
+        solve(S, lam, qp_impl="palas")

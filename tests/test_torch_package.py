@@ -59,6 +59,7 @@ def test_port_imports_neither_jax_nor_reference():
 def test_source_scan_finds_no_jax_or_reference_import():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    files += sorted((REPO / "scripts").glob("*.py"))
     assert len(files) > 10
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
@@ -240,3 +241,84 @@ def test_sparse_project_kernel_matches_plain_version_on_card(cuda, B, cap,
     assert torch.equal(got, again)
     if empty is not None:
         assert not got[:, empty].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n", [(256, 1000), (48, 517), (1, 33), (300, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_column_stats_kernel_matches_plain_version_on_card(cuda, m, n, dtype):
+    """K5: integer counts exactly (every float32 partial sum is exact), and
+    the same bits on a second launch; random floats within 2 gamma_m of
+    the sums of |a| and a^2 (two float32 sums of m terms in any order)."""
+    from repro_torch.kernels import ops, variance
+
+    rng = np.random.default_rng(m + n)
+    counts = torch.from_numpy(rng.poisson(0.5, size=(m, n))).to(cuda, dtype)
+    variance.reset_launches()
+    got = ops.column_stats(counts, impl="cuda")
+    again = ops.column_stats(counts)
+    for g, a, w in zip(got, again, ops.column_stats(counts, impl="ref")):
+        assert torch.equal(g, w) and torch.equal(g, a)
+    assert variance.launches == 2
+    A = torch.from_numpy(rng.normal(size=(m, n))).to(cuda, dtype)
+    A32 = A.float().double()
+    gamma = m * 2.0 ** -24 / (1 - m * 2.0 ** -24)
+    bounds = (2 * gamma * A32.abs().sum(0), 2 * gamma * (A32 * A32).sum(0))
+    for g, w, b in zip(ops.column_stats(A, impl="cuda"),
+                       ops.column_stats(A, impl="ref"), bounds):
+        assert bool(((g.double() - w.double()).abs() <= b).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n", [(256, 500), (48, 500), (256, 2048), (37, 1),
+                                 (65, 33)])
+def test_gram_kernel_matches_plain_version_on_card(cuda, m, n):
+    """K6: integer counts exactly, symmetric, the same bits on a second
+    launch; random floats within 2 gamma_m |A|^T |A| elementwise."""
+    from repro_torch.kernels import gram, ops
+
+    rng = np.random.default_rng(m * n)
+    counts = torch.from_numpy(rng.poisson(0.5, size=(m, n))).to(cuda,
+                                                                torch.float32)
+    gram.reset_launches()
+    G = ops.gram(counts, impl="cuda")
+    assert torch.equal(G, ops.gram(counts, impl="ref"))
+    assert torch.equal(G, G.T) and torch.equal(G, ops.gram(counts))
+    assert gram.launches == 2
+    A = torch.from_numpy(rng.normal(size=(m, n))).to(cuda, torch.float32)
+    Ad = A.double().abs()
+    gamma = (m + 1) * 2.0 ** -24 / (1 - (m + 1) * 2.0 ** -24)
+    diff = (ops.gram(A, impl="cuda").double()
+            - ops.gram(A, impl="ref").double()).abs()
+    assert bool((diff <= 2 * gamma * (Ad.T @ Ad)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,j", [(16, 0), (48, 17), (192, 191), (500, 250)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_qp_sweep_kernel_matches_plain_version_on_card(cuda, n, j, dtype):
+    """K7 on a row update's symmetric Y, each output (u, w, R2) against
+    its own largest |value|: float64 to 1e-12, float32 to 1e-4 (w = Y u0
+    and R2 are reduced in another order); the pinned coordinate
+    untouched; the same bits on a second launch."""
+    from repro_torch.kernels import bcd_sweep, ops
+
+    rng = np.random.default_rng(n + j)
+    F = rng.normal(size=(n + 9, n))
+    X = F.T @ F / (n + 9) + 0.1 * np.eye(n)
+    m = np.ones(n)
+    m[j] = 0.0
+    Y = torch.tensor(X * m[:, None] * m[None, :], dtype=dtype, device=cuda)
+    s = torch.tensor(rng.normal(size=n) * m, dtype=dtype, device=cuda)
+    lam = 0.4 * float(s.abs().max())
+    bcd_sweep.reset_launches()
+    got = ops.qp_sweeps(Y, s, lam, s, j, sweeps=4, impl="cuda")
+    again = ops.qp_sweeps(Y, s, lam, s, j, sweeps=4)
+    want = ops.qp_sweeps(Y, s, lam, s, j, sweeps=4, impl="ref")
+    torch.cuda.synchronize()
+    assert bcd_sweep.launches == 2
+    rtol = 1e-12 if dtype == torch.float64 else 1e-4
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        assert float((g - w).abs().max()) <= rtol * float(w.abs().max())
+    assert float(got[0][j]) == 0.0

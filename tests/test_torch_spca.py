@@ -129,12 +129,18 @@ def test_corpus_copy_is_bit_identical():
 @pytest.mark.parametrize("field,value", [
     ("resume_dir", "/nonexistent"), ("mesh_devices", 2),
     ("lam_grid_probe", 4), ("solve_deadline_s", 1.0),
-    ("pass_deadline_s", 1.0), ("qp_impl", "pallas"),
+    ("pass_deadline_s", 1.0),
 ])
 def test_unported_config_fields_raise(field, value):
     cfg = TConfig(**{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfit(np.eye(4), 1, target_card=1, cfg=cfg, device="cpu")
+
+
+def test_unknown_qp_impl_is_a_value_error():
+    with pytest.raises(ValueError, match="unknown qp_impl"):
+        tfit(np.eye(4), 1, target_card=1, cfg=TConfig(qp_impl="pallsa"),
+             device="cpu")
 
 
 def test_store_handle_raises_not_ported(tmp_path):

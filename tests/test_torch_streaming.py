@@ -179,11 +179,6 @@ def test_state_dict_round_trips_and_crosses_to_reference(store):
     assert js.state_signature() == st.state_signature()
 
 
-def test_dense_leg_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tbow.StreamingStats(4, device="cpu").update(np.ones((2, 4)))
-
-
 def test_combine_screens_matches_reference():
     rng = np.random.default_rng(0)
     parts = [(rng.normal(size=50), rng.random(50), int(c))
