@@ -56,6 +56,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_F32_FLOPS = 67e12          # float32 outside the tensor cores, SXM data sheet
 H100_F64_FLOPS = 34e12          # float64 outside the tensor cores, SXM data sheet
 H100_BYTES_PER_S = 3.35e12      # HBM3, SXM data sheet
+H100_TF32_FLOPS = 495e12        # dense TF32 on the tensor cores, SXM data sheet
 FIT_ARGS = ["--corpus", "nytimes", "--docs", "30000", "--components", "5",
             "--target-card", "5"]
 STREAM_ARGS = ["--streaming", "--corpus", "nytimes", "--docs", "300000",
@@ -66,6 +67,8 @@ SERVE_ARGS = ["--docs", "30000", "--words", "102660", "--components", "5",
 KERNELS = ("bcd_fused", "csr_stats", "csr_gram", "project", "variance", "gram",
            "bcd_sweep")
 CHUNK_ROWS, MEGABATCH = 512, 8   # the launcher's default pass geometry
+# what the tensor-core kernels (K3, K6) report beside the common keys
+TC_KEYS = ("tc_bound_ms", "device_ms", "library_device_ms", "plan")
 DENSE_BLOCK = 256                # rows of a dense row block (the reference's tests)
 
 
@@ -109,6 +112,27 @@ def cuda_ms(fn, reps):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, reps=20):
+    """Device time of one ``fn()`` call: the CUDA kernels that the
+    profiler traces in ``reps`` calls, summed, over ``reps``; None where
+    it records no device time.  Unlike `cuda_ms` it leaves out the host's
+    time between launches, which bounds a short kernel's back-to-back
+    rate on this host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0)
+             or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages())
+    return us / reps / 1e3 if us else None
 
 
 def host_ms(fn):
@@ -801,8 +825,10 @@ def phase_dense_kernel_parity(corpus, dense):
     float64 blocks of odd shape within 2 gamma_(m+1) (sum |a|, sum a^2)
     elementwise.  K6 on real support blocks, exactly: the first block's
     500 support columns, the last block's, the first block's top-2048
-    variance columns, 37 rows of one column; and on random floats within
-    2 gamma_{m+1} |A|^T |A| elementwise.  K7 on row updates of the
+    variance columns, 37 rows of one column, and integer counts up to 2048
+    at (300, 130); and on random floats within 2 gamma_{m+1} |A|^T |A|
+    elementwise, including the design's edges (n % 4 != 0 with the rows
+    split in slabs and without, one tile in 8 slabs).  K7 on row updates of the
     pipeline's Sigma_hat (its top-n variance words, n 16 / 48 / 192 /
     500; X = I, the first row update of a solve, and X = Sigma_hat, a
     dense symmetric Y; j first, middle, last; 4 sweeps), each output (u,
@@ -856,9 +882,15 @@ def phase_dense_kernel_parity(corpus, dense):
              ("last_block_support", last[:, sup], True),
              ("first_block_top2048", first[:, top2048], True),
              ("first_block_37x1", first[:37, sup[:1]], True)]
-    for m, n in ((256, 500), (48, 500), (37, 1)):
+    for m, n in ((256, 500), (48, 500), (37, 1),
+                 # the design's edges: n % 4 != 0 (4-byte copies) with the
+                 # rows split in slabs, and without; one tile in 8 slabs
+                 (300, 130), (256, 2047), (1000, 64)):
         cases.append((f"random_{m}x{n}", rng.normal(size=(m, n)).astype(
             np.float32), False))
+    counts = rng.poisson(0.5, size=(300, 130)).astype(np.float32)
+    counts[rng.integers(0, 300, 3), rng.integers(0, 130, 3)] = [2048, 2047, 1025]
+    cases.append(("counts_to_2048_300x130", counts, True))
     for label, A, exact in cases:
         Ad = torch.from_numpy(np.ascontiguousarray(A)).to(dev)
         got = ops.gram(Ad, impl="cuda")
@@ -977,9 +1009,13 @@ def phase_dense_timing(corpus, dense):
     + ``(A * A).sum(0)``; K6 at (256, 500) on the first block's support
     columns and at (256, 2048), library ``A.T @ A`` with TF32 off, its
     operations those of the upper triangle C is mirrored from (m k (k + 1):
-    a multiply and an add for each of k (k + 1) / 2 entries and m rows);
-    K7 at n 48 and 192 on a dense row update (Y = Sigma_hat's top-n block
-    with row/col 0 zeroed, 4 sweeps, float32), no library call."""
+    a multiply and an add for each of k (k + 1) / 2 entries and m rows),
+    and beside ``tc_bound_ms``, the bound of its own 3xTF32 arithmetic
+    (three times those operations over 495 TFLOP/s, or the bytes), its
+    launch plan, and both its and the library's device time alone
+    (``device_ms``: the profiler's kernel time, no host gaps); K7 at n 48
+    and 192 on a dense row update (Y = Sigma_hat's top-n block with
+    row/col 0 zeroed, 4 sweeps, float32), no library call."""
     import numpy as np
     import torch
 
@@ -1014,11 +1050,21 @@ def phase_dense_timing(corpus, dense):
         m, k = B.shape
         with ref.full_fp32():
             lib = cuda_ms(lambda: B.T @ B, 50)
+            lib_dev = device_ms(lambda: B.T @ B)
+        plan = gram.plan_gram(m, k)
+        nbytes = (m * k + k * k) * 4
         rows[label] = row(
             label, cuda_ms(lambda: gram.gram_cuda(B), 50),
             cuda_ms(lambda: ref.gram_ref(B), 50), lib,
-            (m * k + k * k) * 4, m * k * (k + 1), shape=[m, k],
-            library="A.T @ A, TF32 off")
+            nbytes, m * k * (k + 1), shape=[m, k],
+            library="A.T @ A, TF32 off",
+            device_ms=device_ms(lambda: gram.gram_cuda(B)),
+            library_device_ms=lib_dev,
+            tc_bound_ms=max(nbytes / H100_BYTES_PER_S,
+                            3 * m * k * (k + 1) / H100_TF32_FLOPS) * 1e3,
+            plan={"tile": plan.tile, "split": plan.split,
+                  "slab_rows": plan.slab_rows, "ctas": plan.blocks,
+                  "smem_bytes": plan.smem_bytes})
     S = dense["S"]
     top = np.argsort(-np.diagonal(S), kind="stable")
     for n in (48, 192):
@@ -1131,13 +1177,49 @@ def _csr_supports(v, cfg):
             "top500": np.sort(order[:500]), "top2048": np.sort(order[:2048])}
 
 
+def _csr_edge_cases():
+    """Synthetic megabatches at the gather-Gram kernel's edges: (label,
+    values, local_cols, seg_ids, R, n_hat), rows unsorted, columns past
+    n_hat (off-support) and value-0 padding included."""
+    import numpy as np
+
+    rng = np.random.default_rng(15)
+    out = []
+    for label, C, E, R, n_hat, nnz in (
+            ("r908_slabs8", 2, 4096, 908, 97, [4096, 1500]),
+            ("e1001_empty_chunk", 3, 1001, 64, 70, [1001, 0, 3]),
+            ("c20", 20, 256, 16, 65, [256] * 19 + [9])):
+        vals = np.zeros((C, E), np.float32)
+        cols = np.zeros((C, E), np.int32)
+        segs = np.zeros((C, E), np.int32)
+        for c, k in enumerate(nnz):
+            cells = rng.choice(R * (n_hat + 25), size=k, replace=False)
+            vals[c, :k] = rng.normal(size=k)
+            segs[c, :k], cols[c, :k] = np.divmod(cells, n_hat + 25)
+        out.append((label, vals, cols, segs, R, n_hat))
+    # bag-of-words counts with duplicate cells (each summed cell well
+    # under 2048: the split is exact, so the kernel is too)
+    C, E, R, n_hat = 8, 4096, 512, 220
+    vals = rng.choice([1, 1, 1, 2, 3, 7, 40], size=(C, E)).astype(np.float32)
+    segs = rng.integers(0, R, size=(C, E)).astype(np.int32)
+    cols = rng.integers(0, n_hat + 25, size=(C, E)).astype(np.int32)
+    dup = rng.random((C, E)) < 0.3
+    src = rng.integers(0, np.arange(E) + 1, size=(C, E))
+    for c in range(C):
+        segs[c, dup[c]] = segs[c, src[c, dup[c]]]
+        cols[c, dup[c]] = cols[c, src[c, dup[c]]]
+    out.append(("duplicate_counts", vals, cols, segs, R, n_hat))
+    return out
+
+
 def phase_csr_kernel_parity(store, supports):
     """K2 and K3 against their plain versions on the card, on the first
     and the ragged final megabatch of the 300k store: K2 to 1e-6 of the
     largest |sum|, K3 to 1e-6 of the largest |G|, at the fit's union
     support and the top-500 / top-2048 variance supports, and one C = 1
-    ``ops.csr_gram`` call.  Each kernel also runs twice on the same
-    megabatch; the run-to-run max |diff| is printed."""
+    ``ops.csr_gram`` call; K3 also on `_csr_edge_cases`, symmetric.  Each
+    kernel also runs twice on the same megabatch; the run-to-run max
+    |diff| is printed."""
     import torch
 
     from repro_torch.data.bow import local_support_cols
@@ -1197,6 +1279,28 @@ def phase_csr_kernel_parity(store, supports):
                 check(err1 <= 1e-6, "csr_gram C=1 parity")
                 worst["csr_gram"] = max(worst["csr_gram"],
                                         float((one - one_r).abs().max()))
+    # the design's edges, on synthetic megabatches: the PR 12 kernel's row
+    # cap (8 row slabs), E % 4 != 0 (4-byte copies) with a chunk of no
+    # real entry, 20 chunks (3 a CTA), duplicate (row, col) counts; rows
+    # unsorted, n_hat not a multiple of the 128-wide tile
+    for label, vals, cols, segs, R, n_hat in _csr_edge_cases():
+        v, loc, sg = (torch.from_numpy(a).to(dev) for a in (vals, cols, segs))
+        kw = dict(n_rows=R, n_hat=n_hat)
+        G = ops.csr_gram_batched(v, loc, sg, impl="cuda", **kw)
+        G2 = ops.csr_gram_batched(v, loc, sg, impl="cuda", **kw)
+        Gr = ops.csr_gram_batched(v, loc, sg, impl="ref", **kw)
+        err, diff = _rel_err(G, Gr), float((G - G2).abs().max())
+        abs_err = float((G - Gr).abs().max())
+        ok = err <= 1e-6 and bool(torch.equal(G, G.T))
+        emit("csr_kernel_parity", kernel="csr_gram", batch=label,
+             shape=list(vals.shape), R=R, n_hat=n_hat, rel_err=err,
+             max_abs_err=abs_err, max_abs_G=float(Gr.abs().max()),
+             run_to_run_max_abs_diff=diff, symmetric=bool(
+                 torch.equal(G, G.T)),
+             tolerance="1e-6 of max |G|", ok=ok)
+        check(ok, f"csr_gram parity {label}")
+        worst["csr_gram"] = max(worst["csr_gram"], abs_err)
+        rerun["csr_gram"] = max(rerun["csr_gram"], diff)
     emit("csr_kernel_parity", summary=True, batches=mbs["chunks"],
          empty_slots_in_final=mbs["empty_slots"], max_abs_err=worst,
          run_to_run_max_abs_diff=rerun)
@@ -1306,7 +1410,12 @@ def phase_ingest_passes(corpus, store, support, exact):
 
 def _gram_timing(name, v, loc, sg, R, n_hat):
     """K3 at (C, E) = v.shape: ms, plain ms, the library's contraction of
-    the already densified B (TF32 off), and the bound from this data."""
+    the already densified B (TF32 off), the bound from this data, and
+    beside it ``tc_bound_ms``, the bound of the kernel's own 3xTF32
+    contraction of each chunk's occupied rows (3 sum_c R_occ,c n_hat
+    (n_hat + 1) operations over 495 TFLOP/s, or the bytes), its launch
+    plan, and both its and the library's device time alone
+    (``device_ms``)."""
     import numpy as np
     import torch
 
@@ -1317,6 +1426,7 @@ def _gram_timing(name, v, loc, sg, R, n_hat):
     args = (v[0], loc[0], sg[0]) if one else (v, loc, sg)
     plain_fn = ref.csr_gram_ref if one else ref.csr_gram_batched_ref
     ms = cuda_ms(lambda: csr_gram.csr_gram_cuda(*args, R, n_hat), 50)
+    dev_ms = device_ms(lambda: csr_gram.csr_gram_cuda(*args, R, n_hat))
     plain = cuda_ms(lambda: plain_fn(*args, R, n_hat), 10)
     rows = (sg.long() + R * torch.arange(C, device=v.device)[:, None]
             ).reshape(-1)
@@ -1326,18 +1436,33 @@ def _gram_timing(name, v, loc, sg, R, n_hat):
                  accumulate=True)
     with ref.full_fp32():
         lib = cuda_ms(lambda: torch.matmul(B.T, B), 50)
-    k_r = torch.bincount(rows[on], minlength=C * R).cpu().numpy()
+        lib_dev = device_ms(lambda: torch.matmul(B.T, B))
+    k_r = torch.bincount(rows[on], minlength=C * R).cpu().numpy()[:C * R]
     nbytes = 3 * C * E * 4 + n_hat * n_hat * 4
     ops = int(2 * np.sum(k_r.astype(np.int64) ** 2))
     dense_ops = 2 * C * R * n_hat * n_hat
+    # the kernel's own arithmetic: 3 TF32 products a term over each
+    # chunk's occupied rows (one past its highest row with an entry)
+    occupied = (k_r.reshape(C, R) > 0)
+    r_occ = np.where(occupied.any(1), R - np.argmax(occupied[:, ::-1], 1), 0)
+    tc_ops = 3 * int(r_occ.sum()) * n_hat * (n_hat + 1)
     tb, to = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_FLOPS * 1e3
+    plan = csr_gram.plan_csr_gram(n_hat, R, C)
     return {"name": name, "C": C, "ms": ms, "plain_ms": plain,
             "library_ms": lib,
             "library": "torch.matmul(B.T, B), TF32 off: contraction only",
+            "device_ms": dev_ms, "library_device_ms": lib_dev,
             "bound_ms": max(tb, to),
             "bound_by": "bytes" if tb >= to else "operations",
-            "bytes": nbytes, "ops": ops, "dense_contraction_ops": dense_ops,
+            "tc_bound_ms": max(tb, tc_ops / H100_TF32_FLOPS * 1e3),
+            "bytes": nbytes, "ops": ops, "tc_ops": tc_ops,
+            "occupied_rows": [int(x) for x in r_occ],
+            "dense_contraction_ops": dense_ops,
             "dense_bound_ms": max(tb, dense_ops / H100_F32_FLOPS * 1e3),
+            "plan": {"tile": plan.tile, "slabs": plan.slabs,
+                     "groups": plan.groups,
+                     "chunks_per_group": plan.chunks_per_group,
+                     "ctas": plan.blocks, "smem_bytes": plan.smem_bytes},
             "n_hat": n_hat}
 
 
@@ -1767,7 +1892,8 @@ def main():
             "replaces": replaces, "launches": s_counts[name],
             "max_abs_err": csr_worst[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            **({k: t[k] for k in TC_KEYS} if name == "csr_gram" else {})})
     p64 = prow[64]
     kernels.append({
         "name": "sparse_project", "route": "cuda",
@@ -1792,7 +1918,8 @@ def main():
             "replaces": replaces, "launches": launches,
             "max_abs_err": d_worst[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            **({k: t[k] for k in TC_KEYS} if name == "gram" else {})})
     emit("kernels", table=[
         {**kernels[0], "replaces_also": "src/repro/kernels/bcd_fused.py:197",
          "max_abs_err_by_dtype": worst, "chaotic_case_max_abs_dX": chaotic_dX},
@@ -1802,7 +1929,8 @@ def main():
          "run_to_run_max_abs_diff": csr_rerun["csr_gram"],
          "library": trow["csr_gram"]["library"],
          "single_chunk": {k: trow["csr_gram_c1"][k] for k in (
-             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}},
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             *TC_KEYS)}},
         {**kernels[3], "run_to_run_max_abs_diff": p_rerun,
          "library": p64["library"],
          "batch_512": {k: prow[512][k] for k in (
@@ -1813,7 +1941,8 @@ def main():
         {**kernels[5], "run_to_run_max_abs_diff": d_rerun["gram"],
          "library": drow["gram"]["library"], "shape": drow["gram"]["shape"],
          "n_hat_2048": {k: drow["gram_2048"][k] for k in (
-             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}},
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             *TC_KEYS)}},
         {**kernels[6], "run_to_run_max_abs_diff": d_rerun["qp_sweeps"],
          "max_abs_err_by_dtype": k7_by_dtype, "n": 192,
          "n_48": {k: drow["qp_sweeps_n48"][k] for k in (

@@ -4,12 +4,14 @@ Each source in ``csrc/`` is compiled by ``nvcc`` into a shared library with
 a plain C interface for ``sm_90a`` (Hopper) and loaded with `ctypes`.  The
 build runs at first use, from the sources in the package only, into
 ``build/`` next to this file (listed in ``.gitignore``); the library's name
-carries a hash of its source and flags, so an edited source is rebuilt and
-a stale library is never loaded.  Nothing here runs at import time: the
-CPU tests import every module on a machine with no ``nvcc``.
+carries a hash of its source, the shared headers in ``csrc/`` and the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded.  Nothing here runs at import time: the CPU tests import
+every module on a machine with no ``nvcc``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -18,6 +20,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -48,9 +52,13 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of its source,
+    every shared header in ``csrc/`` (``*.cuh``) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(names) -> dict[str, float]:
@@ -90,3 +98,18 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             lib = _loaded[name] = ctypes.CDLL(str(_target(name)))
         return lib
+
+
+def launch_on(device: torch.device):
+    """``(context, stream)`` for a launch on ``device``: a context that
+    makes it the current device (none when it already is) and the raw
+    handle of its current stream.  A launch through ctypes goes to the
+    current device; this costs well under a microsecond where
+    ``torch.cuda.device`` and ``torch.cuda.current_stream`` cost several
+    a call on the host, and a kernel of a few microseconds is launched
+    back to back."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    context = (contextlib.nullcontext() if index == current
+               else torch.cuda.device(index))
+    return context, torch._C._cuda_getCurrentRawStream(index)

@@ -215,8 +215,32 @@ def test_impl_cuda_on_cpu_tensors_raises():
 
 
 def test_gram_plan_has_no_support_cap_but_a_row_cap():
-    plan = tgram.plan_csr_gram(2048, 512)
-    assert plan.n_tiles == 64 and plan.blocks == 64 * 65 // 2
-    assert plan.smem_bytes == 2 * 512 * 32 * 4 <= tgram.SMEM_LIMIT_BYTES
+    budget = tgram.SMEM_LIMIT_BYTES - tgram.STATIC_RESERVE
+    # the streaming fit's megabatch: 128-wide tiles, 4 interleaved row
+    # slabs of 128 rows, a CTA per (tile, chunk, slab) and a chunk per
+    # CTA: 3 x 8 x 4 = 96 CTAs of one per SM, so one wave on 132 SMs
+    plan = tgram.plan_csr_gram(220, 512, 8)
+    assert (plan.tile, plan.n_tiles, plan.tiles) == (128, 2, 3)
+    assert (plan.slabs, plan.panel_rows) == (4, 128)
+    assert (plan.groups, plan.chunks_per_group, plan.parts) == (8, 1, 32)
+    assert plan.blocks == 96 <= tgram.SMS
+    assert plan.smem_bytes == 2 * 128 * 128 * 4 + tgram.STAGING_BYTES <= budget
+    assert 2 * plan.smem_bytes > tgram.SMEM_LIMIT_BYTES   # one CTA an SM
+    # a lone chunk takes more slabs while the card has SMs to spare
+    assert tgram.plan_csr_gram(220, 512, 1).slabs == 8
+    # no support cap: any n_hat takes one launch
+    big = tgram.plan_csr_gram(2048, 512, 8)
+    assert big.n_tiles == 16 and big.blocks == 16 * 17 // 2 * 8 * 4
+    assert tgram.plan_csr_gram(1, 1).blocks == 8
+    # the PR 12 kernel's largest R still fits; many chunks are grouped in
+    # order so a tile's chunk groups stay one cluster
+    assert tgram.plan_csr_gram(100, 908, 8).slabs == 8
+    many = tgram.plan_csr_gram(100, 512, 20)
+    assert (many.groups, many.chunks_per_group) == (7, 3)
+    assert many.groups <= tgram.MAX_CLUSTER
+    assert many.groups * many.chunks_per_group >= 20
+    assert (many.groups - 1) * many.chunks_per_group < 20
+    # the row cap: 8 slabs of 152 rows
+    assert tgram.plan_csr_gram(100, 1216, 8).slabs == 8
     with pytest.raises(ValueError, match="shared memory"):
-        tgram.plan_csr_gram(100, 1024)
+        tgram.plan_csr_gram(100, 1217)

@@ -27,8 +27,9 @@ from repro.kernels import ref as jref
 from repro.kernels.bcd_sweep import qp_sweep_pallas
 from repro.kernels.gram import gram_pallas
 from repro.kernels.variance import column_stats_pallas
-from repro_torch.kernels import bcd_sweep, gram, ops, variance
+from repro_torch.kernels import bcd_sweep, gram, ops, ref, variance
 from repro_torch.obs import metrics
+from repro_torch.testing.tf32 import gram_3xtf32, split_tf32
 
 U32 = 2.0 ** -24
 
@@ -91,6 +92,59 @@ def test_gram_matches_reference(shape, kind):
             assert np.array_equal(got.numpy(), np.asarray(want))
         else:
             _close(got.numpy(), want, bound)
+
+
+@pytest.mark.parametrize("m,n,split,slab_rows,blocks", [
+    (256, 500, 8, 32, 36 * 8),      # the path's block: 36 tiles, rows split
+    (256, 2048, 1, 256, 528),       # 528 tiles fill the card: no split
+    (37, 1, 2, 32, 2),              # one tile, two panels of rows
+])
+def test_plan_gram_splits_rows_only_where_tiles_leave_sms_idle(m, n, split,
+                                                               slab_rows,
+                                                               blocks):
+    plan = gram.plan_gram(m, n)
+    n_tiles = -(-n // 64)
+    assert (plan.tile, plan.n_tiles) == (64, n_tiles)
+    assert plan.tiles == n_tiles * (n_tiles + 1) // 2
+    assert (plan.split, plan.slab_rows, plan.blocks) == (split, slab_rows,
+                                                         blocks)
+    assert plan.split * plan.slab_rows >= m > (plan.split - 1) * plan.slab_rows
+    assert plan.smem_bytes == 3 * 2 * 32 * 64 * 4
+    assert gram.plan_gram(0, 5).split == 1
+    with pytest.raises(ValueError):
+        gram.plan_gram(4, 0)
+
+
+def test_tf32_split_is_exact_on_counts_up_to_2048():
+    """(a) Integer counts up to 2048 have at most 11 significant bits: the
+    split leaves lo = 0 and the emulated tensor-core Gram equals the
+    plain version exactly (every partial sum an integer below 2^24)."""
+    rng = np.random.default_rng(15)
+    A = _block((256, 500), "counts", seed=15)
+    rows = rng.choice(256, size=60, replace=False)
+    cols = rng.choice(500, size=60, replace=False)
+    A[rows, cols] = rng.choice([2048, 2047, 1025, 1023, 513], size=60)
+    ints = torch.arange(2049, dtype=torch.float32)
+    hi, lo = split_tf32(ints)
+    assert torch.equal(hi, ints) and not lo.any()
+    At = torch.from_numpy(A)
+    assert float((At.double().T @ At.double()).abs().max()) < 2 ** 24
+    for slab_rows in (None, gram.plan_gram(*A.shape).slab_rows):
+        assert torch.equal(gram_3xtf32(At, slab_rows), ref.gram_ref(At))
+
+
+@pytest.mark.parametrize("shape", [(256, 500), (48, 500), (37, 1), (65, 33)])
+def test_tf32_split_gram_within_the_card_bar(shape):
+    """(b) On random normal blocks the emulated 3xTF32 Gram lies within
+    2 gamma_(m+1) |A|^T |A| of the plain version, the bar the card's K6
+    is held to; and it is exactly symmetric."""
+    A = torch.from_numpy(np.random.default_rng(shape[0] + shape[1]).normal(
+        size=shape).astype(np.float32))
+    got = gram_3xtf32(A, gram.plan_gram(*shape).slab_rows)
+    Ad = A.double().abs()
+    bound = 2 * _gamma(shape[0] + 1) * (Ad.T @ Ad)
+    _close(got.numpy(), ref.gram_ref(A).numpy(), bound.numpy())
+    assert torch.equal(got, got.T)
 
 
 def test_column_variances_matches_reference():

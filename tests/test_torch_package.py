@@ -101,6 +101,28 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         ops.bcd_solve(S, 0.1, 1e-4, impl="cuda")
 
 
+def test_build_name_follows_the_shared_headers(tmp_path, monkeypatch):
+    """A library's name hashes its source AND every shared ``csrc/*.cuh``,
+    so an edited header is rebuilt, never loaded stale (no nvcc needed)."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build._target(n) for n in ("gram", "csr_gram", "variance")}
+    assert before["gram"] == _build._target("gram")        # deterministic
+    header = csrc / "gram_tc.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build._target(n) for n in before}
+    assert all(after[n] != before[n] for n in before)
+    (csrc / "extra.cuh").write_text("// a new shared header\n")
+    assert _build._target("gram") != after["gram"]
+    (csrc / "extra.cuh").unlink()
+    assert _build._target("gram") == after["gram"]
+
+
 def test_chip_smoke_refuses_without_card_and_outside_checkout(tmp_path):
     env = {"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""}
     out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
@@ -157,13 +179,18 @@ def _csr_megabatch(C, E, R, n, nnz, seed):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("C,E,R,n_hat,nnz", [
-    (4, 512, 32, 130, [512, 512, 300, 0]),
+    (4, 512, 32, 130, [512, 512, 300, 0]),   # a chunk with no real entry
     (1, 2048, 64, 33, [2000]),
     (8, 1024, 512, 300, [1024] * 7 + [17]),
+    (8, 16384, 512, 220, [16384] * 8),       # the fit's shape: 4 slabs, 32 parts
+    (2, 4096, 908, 97, [4096, 1500]),        # the PR 12 row cap: 8 slabs
+    (3, 1001, 64, 70, [1001, 500, 3]),       # E % 4 != 0: 4-byte copies
+    (20, 256, 16, 65, [256] * 19 + [9]),     # 20 chunks: 3 a CTA, cluster of 7
 ])
 def test_csr_kernels_match_plain_versions_on_card(cuda, C, E, R, n_hat, nnz):
     """K2 and K3 against their plain versions: 1e-6 of the largest entry
-    (float32 sums in another order); K3 symmetric and deterministic."""
+    (float32 sums in another order); K3 symmetric and deterministic.
+    Rows are unsorted; n_hat is not a multiple of the 64-wide tile."""
     from repro_torch.kernels import ops
 
     vals, cols, segs = (torch.from_numpy(a).to(cuda) for a in
@@ -186,6 +213,47 @@ def test_csr_kernels_match_plain_versions_on_card(cuda, C, E, R, n_hat, nnz):
                                                **kw))
     close(ops.csr_gram(vals[0], cols[0], segs[0], impl="cuda", **kw),
           ops.csr_gram(vals[0], cols[0], segs[0], impl="ref", **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,E,R,n_hat", [(8, 4096, 512, 220), (1, 999, 37, 9),
+                                         (3, 2048, 908, 130)])
+def test_csr_gram_kernel_sums_duplicates_exactly_on_card(cuda, C, E, R,
+                                                         n_hat):
+    """K3 on bag-of-words counts with duplicate (row, col) entries,
+    unsorted rows, off-support sentinels, rows past R and padding: equal
+    to its plain version (each summed cell an integer of at most 11
+    significant bits, so the 3xTF32 split is exact, and every partial sum
+    an integer below 2^24), symmetric, the same bits on a second launch,
+    one launch a call."""
+    from repro_torch.kernels import csr_gram, ops
+
+    rng = np.random.default_rng(C * E + R)
+    vals = rng.choice([1, 1, 1, 2, 3, 7, 40], size=(C, E)).astype(np.float32)
+    segs = rng.integers(0, R + 3, size=(C, E)).astype(np.int32)
+    cols = rng.integers(-2, n_hat + 25, size=(C, E)).astype(np.int32)
+    dup = rng.random((C, E)) < 0.3          # copy an earlier entry's cell
+    src = rng.integers(0, np.arange(E) + 1, size=(C, E))
+    for c in range(C):
+        segs[c, dup[c]] = segs[c, src[c, dup[c]]]
+        cols[c, dup[c]] = cols[c, src[c, dup[c]]]
+    vals[:, E - E // 5:] = 0.0              # padding
+    keep = (vals != 0) & (cols >= 0) & (cols < n_hat) & (segs < R)
+    B = np.zeros((C, R, n_hat))
+    np.add.at(B, (np.nonzero(keep)[0], segs[keep], cols[keep]), vals[keep])
+    assert B.max() <= 2048
+    vals, cols, segs = (torch.from_numpy(a).to(cuda) for a in
+                        (vals, cols, segs))
+    kw = dict(n_rows=R, n_hat=n_hat)
+    want = ops.csr_gram_batched(vals, cols, segs, impl="ref", **kw)
+    assert float(want.abs().max()) < 2 ** 24
+    csr_gram.reset_launches()
+    G = ops.csr_gram_batched(vals, cols, segs, impl="cuda", **kw)
+    again = ops.csr_gram_batched(vals, cols, segs, **kw)
+    torch.cuda.synchronize()
+    assert csr_gram.launches == 2
+    assert torch.equal(G, want) and torch.equal(G, again)
+    assert torch.equal(G, G.T)
 
 
 def _serving_pack(rng, n, k, cap, card, *, overlap=0, empty=None):
@@ -270,16 +338,26 @@ def test_column_stats_kernel_matches_plain_version_on_card(cuda, m, n, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,n", [(256, 500), (48, 500), (256, 2048), (37, 1),
-                                 (65, 33)])
+@pytest.mark.parametrize("m,n", [
+    (256, 500), (48, 500), (256, 2048), (37, 1), (65, 33),
+    (300, 130),     # n % 4 != 0 (4-byte copies); 5 slabs of 64: split on
+    (256, 2047),    # n % 4 != 0, 528 tiles: split off
+    (1000, 64),     # one tile, 8 slabs of 128 rows; m not a multiple of 128
+    (97, 4000),     # split off, m not a multiple of the 32-row panel
+    (0, 7),         # no rows: zeros
+])
 def test_gram_kernel_matches_plain_version_on_card(cuda, m, n):
-    """K6: integer counts exactly, symmetric, the same bits on a second
-    launch; random floats within 2 gamma_m |A|^T |A| elementwise."""
+    """K6: integer counts exactly (a few up to 2048: the 3xTF32 split's lo
+    is 0), symmetric, the same bits on a second launch; random floats
+    within 2 gamma_(m+1) |A|^T |A| elementwise."""
     from repro_torch.kernels import gram, ops
 
     rng = np.random.default_rng(m * n)
-    counts = torch.from_numpy(rng.poisson(0.5, size=(m, n))).to(cuda,
-                                                                torch.float32)
+    counts = rng.poisson(0.5, size=(m, n))
+    if m:
+        big = rng.integers(0, m, size=3), rng.integers(0, n, size=3)
+        counts[big] = [2048, 2047, 1025]
+    counts = torch.from_numpy(counts).to(cuda, torch.float32)
     gram.reset_launches()
     G = ops.gram(counts, impl="cuda")
     assert torch.equal(G, ops.gram(counts, impl="ref"))
