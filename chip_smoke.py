@@ -57,6 +57,9 @@ H100_F32_FLOPS = 67e12          # float32 outside the tensor cores, SXM data she
 H100_F64_FLOPS = 34e12          # float64 outside the tensor cores, SXM data sheet
 H100_BYTES_PER_S = 3.35e12      # HBM3, SXM data sheet
 H100_TF32_FLOPS = 495e12        # dense TF32 on the tensor cores, SXM data sheet
+# float32-accurate products on the tensor cores: three TF32 products each
+# (3xTF32), faster than the CUDA cores, so the floor of a float32 Gram
+H100_F32_TC_FLOPS = H100_TF32_FLOPS / 3
 FIT_ARGS = ["--corpus", "nytimes", "--docs", "30000", "--components", "5",
             "--target-card", "5"]
 STREAM_ARGS = ["--streaming", "--corpus", "nytimes", "--docs", "300000",
@@ -67,8 +70,8 @@ SERVE_ARGS = ["--docs", "30000", "--words", "102660", "--components", "5",
 KERNELS = ("bcd_fused", "csr_stats", "csr_gram", "project", "variance", "gram",
            "bcd_sweep")
 CHUNK_ROWS, MEGABATCH = 512, 8   # the launcher's default pass geometry
-# what the tensor-core kernels (K3, K6) report beside the common keys
-TC_KEYS = ("tc_bound_ms", "device_ms", "library_device_ms", "plan")
+# what the tensor-core kernels (K3, K6) measure beside the common keys
+DEVICE_KEYS = ("device_ms", "library_device_ms")
 DENSE_BLOCK = 256                # rows of a dense row block (the reference's tests)
 
 
@@ -1010,9 +1013,11 @@ def phase_dense_timing(corpus, dense):
     columns and at (256, 2048), library ``A.T @ A`` with TF32 off, its
     operations those of the upper triangle C is mirrored from (m k (k + 1):
     a multiply and an add for each of k (k + 1) / 2 entries and m rows),
-    and beside ``tc_bound_ms``, the bound of its own 3xTF32 arithmetic
-    (three times those operations over 495 TFLOP/s, or the bytes), its
-    launch plan, and both its and the library's device time alone
+    its bound over the float32 rate of the tensor cores (3xTF32: 495 / 3
+    TFLOP/s), the card's floor for a float32 Gram, which is also
+    ``tc_bound_ms``, the bound of K6's own arithmetic; beside them
+    ``cuda_core_bound_ms`` (those operations over 67 TFLOP/s), its launch
+    plan, and both its and the library's device time alone
     (``device_ms``: the profiler's kernel time, no host gaps); K7 at n 48
     and 192 on a dense row update (Y = Sigma_hat's top-n block with
     row/col 0 zeroed, 4 sweeps, float32), no library call."""
@@ -1025,8 +1030,8 @@ def phase_dense_timing(corpus, dense):
     first = dense["blocks"][0]
     rows = {}
 
-    def row(name, ms, plain, lib, nbytes, ops, **kw):
-        tb, to = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_FLOPS * 1e3
+    def row(name, ms, plain, lib, nbytes, ops, flops=H100_F32_FLOPS, **kw):
+        tb, to = nbytes / H100_BYTES_PER_S * 1e3, ops / flops * 1e3
         r = {"name": name, "ms": ms, "plain_ms": plain, "library_ms": lib,
              "bound_ms": max(tb, to),
              "bound_by": "bytes" if tb >= to else "operations",
@@ -1052,16 +1057,17 @@ def phase_dense_timing(corpus, dense):
             lib = cuda_ms(lambda: B.T @ B, 50)
             lib_dev = device_ms(lambda: B.T @ B)
         plan = gram.plan_gram(m, k)
-        nbytes = (m * k + k * k) * 4
+        nbytes, ops = (m * k + k * k) * 4, m * k * (k + 1)
+        tb = nbytes / H100_BYTES_PER_S * 1e3
         rows[label] = row(
             label, cuda_ms(lambda: gram.gram_cuda(B), 50),
             cuda_ms(lambda: ref.gram_ref(B), 50), lib,
-            nbytes, m * k * (k + 1), shape=[m, k],
+            nbytes, ops, flops=H100_F32_TC_FLOPS, shape=[m, k],
             library="A.T @ A, TF32 off",
             device_ms=device_ms(lambda: gram.gram_cuda(B)),
             library_device_ms=lib_dev,
-            tc_bound_ms=max(nbytes / H100_BYTES_PER_S,
-                            3 * m * k * (k + 1) / H100_TF32_FLOPS) * 1e3,
+            tc_bound_ms=max(tb, ops / H100_F32_TC_FLOPS * 1e3),
+            cuda_core_bound_ms=max(tb, ops / H100_F32_FLOPS * 1e3),
             plan={"tile": plan.tile, "split": plan.split,
                   "slab_rows": plan.slab_rows, "ctas": plan.blocks,
                   "smem_bytes": plan.smem_bytes})
@@ -1410,12 +1416,14 @@ def phase_ingest_passes(corpus, store, support, exact):
 
 def _gram_timing(name, v, loc, sg, R, n_hat):
     """K3 at (C, E) = v.shape: ms, plain ms, the library's contraction of
-    the already densified B (TF32 off), the bound from this data, and
-    beside it ``tc_bound_ms``, the bound of the kernel's own 3xTF32
-    contraction of each chunk's occupied rows (3 sum_c R_occ,c n_hat
-    (n_hat + 1) operations over 495 TFLOP/s, or the bytes), its launch
-    plan, and both its and the library's device time alone
-    (``device_ms``)."""
+    the already densified B (TF32 off), the bound from this data (its
+    operations over the float32 rate of the tensor cores, 3xTF32: 495 / 3
+    TFLOP/s, the card's floor for them), and beside it
+    ``cuda_core_bound_ms`` (the operations over 67 TFLOP/s),
+    ``tc_bound_ms``, the bound of the kernel's own 3xTF32 contraction of
+    each chunk's occupied rows (3 sum_c R_occ,c n_hat (n_hat + 1)
+    operations over 495 TFLOP/s, or the bytes), its launch plan, and both
+    its and the library's device time alone (``device_ms``)."""
     import numpy as np
     import torch
 
@@ -1446,7 +1454,7 @@ def _gram_timing(name, v, loc, sg, R, n_hat):
     occupied = (k_r.reshape(C, R) > 0)
     r_occ = np.where(occupied.any(1), R - np.argmax(occupied[:, ::-1], 1), 0)
     tc_ops = 3 * int(r_occ.sum()) * n_hat * (n_hat + 1)
-    tb, to = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_FLOPS * 1e3
+    tb, to = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_TC_FLOPS * 1e3
     plan = csr_gram.plan_csr_gram(n_hat, R, C)
     return {"name": name, "C": C, "ms": ms, "plain_ms": plain,
             "library_ms": lib,
@@ -1454,6 +1462,7 @@ def _gram_timing(name, v, loc, sg, R, n_hat):
             "device_ms": dev_ms, "library_device_ms": lib_dev,
             "bound_ms": max(tb, to),
             "bound_by": "bytes" if tb >= to else "operations",
+            "cuda_core_bound_ms": max(tb, ops / H100_F32_FLOPS * 1e3),
             "tc_bound_ms": max(tb, tc_ops / H100_TF32_FLOPS * 1e3),
             "bytes": nbytes, "ops": ops, "tc_ops": tc_ops,
             "occupied_rows": [int(x) for x in r_occ],
@@ -1473,7 +1482,8 @@ def phase_csr_timing(store, support, mb):
     launches), the plain version's ms, the library call's ms (K2: two
     ``index_add_``; K3: ``torch.matmul`` of the already densified B,
     TF32 off, the contraction only) and the bound: the larger of bytes
-    over 3.35 TB/s and operations over 67 TFLOP/s, counted from this
+    over 3.35 TB/s and operations over 67 TFLOP/s (K3's over 495 / 3
+    TFLOP/s, float32 products on the tensor cores), counted from this
     batch's data (real entries; K3 the sparse product's multiply-adds,
     2 sum_r k_r^2 with k_r the row's on-support entries)."""
     import numpy as np
@@ -1893,7 +1903,7 @@ def main():
             "max_abs_err": csr_worst[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            **({k: t[k] for k in TC_KEYS} if name == "csr_gram" else {})})
+            **({k: t[k] for k in DEVICE_KEYS} if name == "csr_gram" else {})})
     p64 = prow[64]
     kernels.append({
         "name": "sparse_project", "route": "cuda",
@@ -1919,7 +1929,7 @@ def main():
             "max_abs_err": d_worst[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            **({k: t[k] for k in TC_KEYS} if name == "gram" else {})})
+            **({k: t[k] for k in DEVICE_KEYS} if name == "gram" else {})})
     emit("kernels", table=[
         {**kernels[0], "replaces_also": "src/repro/kernels/bcd_fused.py:197",
          "max_abs_err_by_dtype": worst, "chaotic_case_max_abs_dX": chaotic_dX},
@@ -1930,7 +1940,7 @@ def main():
          "library": trow["csr_gram"]["library"],
          "single_chunk": {k: trow["csr_gram_c1"][k] for k in (
              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-             *TC_KEYS)}},
+             *DEVICE_KEYS)}},
         {**kernels[3], "run_to_run_max_abs_diff": p_rerun,
          "library": p64["library"],
          "batch_512": {k: prow[512][k] for k in (
@@ -1942,7 +1952,7 @@ def main():
          "library": drow["gram"]["library"], "shape": drow["gram"]["shape"],
          "n_hat_2048": {k: drow["gram_2048"][k] for k in (
              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-             *TC_KEYS)}},
+             *DEVICE_KEYS)}},
         {**kernels[6], "run_to_run_max_abs_diff": d_rerun["qp_sweeps"],
          "max_abs_err_by_dtype": k7_by_dtype, "n": 192,
          "n_48": {k: drow["qp_sweeps_n48"][k] for k in (

@@ -7,8 +7,9 @@ phase, on one card.
 ``ncu`` and ``nsys`` do not run where the card is, so this builds
 instrumented copies of ``csrc/gram.cu`` and ``csrc/csr_gram.cu`` (into
 ``src/repro_torch/kernels/build/trace/``; the package's own libraries are
-not touched): thread 0 of every CTA records the SM clock at the end of
-each phase and the global timer at its start and end.  Each kernel then
+not touched) that define the kernels' ``GRAM_TRACE`` phase marks: thread
+0 of every CTA records the SM clock at the end of each phase and the
+global timer at its start and end.  Each kernel then
 runs a few times on the same inputs and the last launch's records are
 read back.  Printed per phase: the p50, p90 and largest time since the
 CTA's start, in microseconds (SM clock at the card's maximum clock); per
@@ -49,68 +50,52 @@ __device__ __forceinline__ unsigned long long gtime() {
 extern "C" int trace_read(void* dst) {
   return (int)cudaMemcpyFromSymbol(dst, g_trace, sizeof(g_trace));
 }
-#define REC(col, value) \\
-  if (threadIdx.x == 0) g_trace[blockIdx.x][col] = (value)
+// columns: 0 start, 1 end (global timer: the last mark's), 2.. the end of
+// each phase (SM clock since the CTA's start), 7 the CTA's start clock
+__device__ __forceinline__ void gram_trace(int col) {
+  if (threadIdx.x != 0) return;
+  unsigned long long* r = g_trace[blockIdx.x];
+  if (col == 0) {
+    r[0] = gtime();
+    r[7] = clock64();
+  } else {
+    r[col] = clock64() - r[7];
+    r[1] = gtime();
+  }
+}
+#define GRAM_TRACE(col) gram_trace(col)
 '''
-
-# (anchor, text placed after it); columns: 0 start (global timer), 1 end
-# (global timer), 2.. phase ends (clock64 since the CTA's start)
-K6_MARKS = [
-    ("  WarpTile<kT, 2, 4> wt;\n",
-     "  const long long T0 = clock64();\n  REC(0, gtime());\n"),
-    ("  cp_async_wait<0>();\n  __syncthreads();\n",
-     "  REC(2, clock64() - T0);\n"),
-    ("  cluster_sum_strip<kT>(smem, a0, a1);\n",
-     "  REC(3, clock64() - T0);\n"),
-    ("  write_rows<kT>(smem, C, n, lo_a, lo_b, diag, a0, a1);\n",
-     "  REC(4, clock64() - T0);\n  REC(1, gtime());\n"),
-]
-K3_MARKS = [
-    ("  WarpTile<kT, 2, 4> wt;\n",
-     "  const long long T0 = clock64();\n  REC(0, gtime());\n"),
-    ("    const int rows = (s_rows + 7) & ~7;",
-     "\n    REC(2, clock64() - T0);"),
-    ("  __syncthreads();\n  wt.stage(smem, m_off, n_off, lane);\n",
-     "  REC(3, clock64() - T0);\n"),
-    ("  cluster_sum_strip<kT>(smem, a0, a1);\n",
-     "  REC(4, clock64() - T0);\n"),
-    ("               slabs, group);\n",
-     "  REC(5, clock64() - T0);\n  REC(1, gtime());\n"),
-]
+# the phases' columns, as the kernels' GRAM_TRACE marks number them
 K6_PHASES = (("loop", 2), ("cluster_sum", 3), ("write", 4))
 K3_PHASES = (("scan", 2), ("contract", 3), ("cluster_sum", 4), ("finish", 5))
 
 
 def build(names):
-    """Instrumented copies of ``csrc/<name>.cu``, built and loaded."""
+    """Instrumented copies of ``csrc/<name>.cu`` and the shared headers,
+    built by the package's own build (same flags, a library named by a
+    hash of the copies) into ``build/trace/`` and loaded."""
     import ctypes
+    import shutil
 
     from repro_torch.kernels import _build
 
     out = _build.BUILD_DIR / "trace"
     out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, marks in names.items():
-        src = (_build.CSRC / f"{name}.cu").read_text()
-        src = src.replace('#include "gram_tc.cuh"\n',
-                          RECORDER + f'#include "{_build.CSRC}/gram_tc.cuh"\n')
-        for anchor, text in marks:
-            if anchor not in src:
-                raise SystemExit(f"gram_phase_trace: {name}.cu no longer has "
-                                 f"the line {anchor.strip()!r}")
-            src = src.replace(anchor, anchor + text, 1)
-        (out / f"{name}.cu").write_text(src)
-        procs[name] = subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS,
-             "-o", str(out / f"lib{name}.so"), str(out / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for header in _build.CSRC.glob("*.cuh"):
+        shutil.copyfile(header, out / header.name)
+    for name in names:
+        (out / f"{name}.cu").write_text(
+            RECORDER + (_build.CSRC / f"{name}.cu").read_text())
+    saved = _build.CSRC, _build.BUILD_DIR
+    _build.CSRC = _build.BUILD_DIR = out
+    try:
+        _build.build(names)
+        paths = {name: _build._target(name) for name in names}
+    finally:
+        _build.CSRC, _build.BUILD_DIR = saved
     libs = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed on the traced {name}.cu:\n"
-                             f"{log[-3000:]}")
-        lib = libs[name] = ctypes.CDLL(str(out / f"lib{name}.so"))
+    for name, path in paths.items():
+        lib = libs[name] = ctypes.CDLL(str(path))
         lib.trace_read.argtypes = [ctypes.c_void_p]
         p, i = ctypes.c_void_p, ctypes.c_int
         if name == "gram":
@@ -163,7 +148,7 @@ def main():
     clock_hz = 1e6 * float(subprocess.run(
         CLOCK_QUERY, capture_output=True, text=True,
         check=True).stdout.split()[0])
-    libs = build({"gram": K6_MARKS, "csr_gram": K3_MARKS})
+    libs = build(("gram", "csr_gram"))
     dev = torch.device("cuda")
     _, stream = _build.launch_on(dev)
     rng = np.random.default_rng(0)

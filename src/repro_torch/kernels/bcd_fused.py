@@ -131,8 +131,8 @@ def launch(Sigma3, X03, scal, *, plan: SolvePlan, max_sweeps: int,
     X = torch.empty_like(Sigma3)
     hist = torch.empty((B, max_sweeps), dtype=dtype, device=Sigma3.device)
     meta = torch.empty((B, 2), dtype=dtype, device=Sigma3.device)
-    with torch.cuda.device(Sigma3.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    context, stream = _build.launch_on(Sigma3.device)
+    with context:
         rc = lib.bcd_fused_launch(
             Sigma3.element_size(), _SCHEME_CODES[plan.scheme],
             Sigma3.data_ptr(), X03.data_ptr(), scal.data_ptr(),

@@ -91,8 +91,8 @@ def qp_sweep_cuda(Y: torch.Tensor, s: torch.Tensor, lam, u0: torch.Tensor,
     Y, s, u0 = Y.contiguous(), s.contiguous(), u0.contiguous()
     threads = min(MAX_THREADS, -(-n // 32) * 32)
     lib = _library()
-    with torch.cuda.device(Y.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    context, stream = _build.launch_on(Y.device)
+    with context:
         rc = lib.qp_sweep_launch(Y.element_size(), Y.data_ptr(),
                                  s.data_ptr(), u0.data_ptr(), float(lam),
                                  int(j), n, int(sweeps), u.data_ptr(),

@@ -102,6 +102,15 @@ def plan_csr_gram(n_hat: int, n_rows: int, n_chunks: int = 1) -> CsrGramPlan:
                        parts, tiles * parts, smem)
 
 
+# (device index, raw stream) -> (work, counters), kept for the process.
+# Invariant: every counter is zero whenever no launch on that stream is in
+# flight.  The buffers start zeroed, and each launch that runs to its end
+# leaves them so (the last CTA to arrive at a strip resets its counter).
+# A launch that fails to start runs no CTA; one that faults on the card
+# leaves its counters dirty, but a fault is sticky: the CUDA context then
+# runs no later launch, so none can read them.  No lock: a buffer that
+# two threads replace at once is used only by the launch that made it,
+# and the caching allocator reuses a dropped one in that stream's order.
 _scratch: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 
@@ -110,11 +119,10 @@ def workspace(device: torch.device, stream: int, plan: CsrGramPlan):
     ``device``) whose tiles are split into row slabs, ``(None, None)``
     with one slab: room for the slabs' partial tiles (tiles x slabs x
     TILE x TILE float32) and zeroed int32 arrival counters, MAX_CLUSTER a
-    tile.  A kernel leaves its
-    counters zero again (the last CTA to a strip resets its own) and
-    needs its partials only while it runs, so one pair of buffers per
-    (device, stream), grown when a plan needs more, serves every launch
-    on that stream: launches on one stream never overlap."""
+    tile.  A kernel leaves its counters zero again and needs its partials
+    only while it runs, so one pair of buffers per (device, stream),
+    grown when a plan needs more, serves every launch on that stream:
+    launches on one stream never overlap (see ``_scratch``)."""
     if plan.slabs == 1:
         return None, None
     key = (device.index, stream)

@@ -63,8 +63,8 @@ def csr_column_stats_cuda(values: torch.Tensor, col_ids: torch.Tensor,
     acc = torch.zeros(2 * n + 1, dtype=torch.float64, device=dev)
     out = torch.empty((2, n), dtype=torch.float32, device=dev)
     lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+    context, stream = _build.launch_on(dev)
+    with context:
         rc = lib.csr_stats_launch(values.data_ptr(), col_ids.data_ptr(),
                                   values.numel(), n, acc.data_ptr(),
                                   out[0].data_ptr(), out[1].data_ptr(), stream)

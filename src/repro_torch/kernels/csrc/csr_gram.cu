@@ -210,6 +210,7 @@ csr_gram_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
   const int m_off = (warp >> 2) * 32, n_off = (warp & 3) * 32;
   const bool idle = diag && WarpTile<kT, 2, 4>::below_diagonal(m_off, n_off);
   WarpTile<kT, 2, 4> wt;
+  GRAM_TRACE(0);
   const int c_begin = group * chunks_per_group;
   const int c_end = min(C, c_begin + chunks_per_group);
   const int pieces = (E + kPiece - 1) / kPiece;
@@ -266,6 +267,7 @@ csr_gram_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
     if (lane == 0) atomicMax(&s_rows, hi);
     __syncthreads();
     const int rows = (s_rows + 7) & ~7;   // <= panel_rows, a multiple of 8
+    GRAM_TRACE(2);                        // scan
     if (!idle)
       for (int k0 = 0; k0 < rows; k0 += 8) wt.step(Pi, Pj, k0, m_off, n_off, lane);
     if (c + 1 < c_end) {              // zero the touched rows for the next chunk
@@ -282,10 +284,13 @@ csr_gram_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
   }
   __syncthreads();
   wt.stage(smem, m_off, n_off, lane);
+  GRAM_TRACE(3);   // contract
   int a0, a1;
   cluster_sum_strip<kT>(smem, a0, a1);
+  GRAM_TRACE(4);   // cluster_sum
   finish_strip(smem, G, n_hat, lo_i, lo_j, diag, a0, a1, work, counters, tile, slab,
                slabs, group);
+  GRAM_TRACE(5);   // finish
 }
 
 }  // namespace
@@ -296,7 +301,7 @@ extern "C" {
 // 2^slabs_log2 slabs of `panel_rows` rows (a multiple of 8) must cover the
 // R rows and `groups` groups (at most 8: one cluster) of
 // `chunks_per_group` the C chunks; with more than one slab, `work` holds
-// tiles * slabs * 64 * 64 floats and `counters` tiles * 8 zeroed ints.
+// tiles * slabs * 128 * 128 floats and `counters` tiles * 8 zeroed ints.
 int csr_gram_launch(const void* vals, const void* cols, const void* segs, int C, int E,
                     int R, int n_hat, int slabs_log2, int panel_rows, int groups,
                     int chunks_per_group, void* G, void* work, void* counters,

@@ -99,6 +99,7 @@ gram_kernel(const float* __restrict__ A, int m, int n, int n_tiles, int split,
   const int m_off = (warp >> 1) * 32, n_off = (warp & 1) * 32;
   const bool idle = diag && WarpTile<kT, 2, 4>::below_diagonal(m_off, n_off);
   WarpTile<kT, 2, 4> wt;
+  GRAM_TRACE(0);
 
   auto panel_a = [&](int s) { return smem + s * kStageFloats; };
   auto panel_b = [&](int s) { return diag ? panel_a(s) : panel_a(s) + kBK * kT; };
@@ -125,10 +126,13 @@ gram_kernel(const float* __restrict__ A, int m, int n, int n_tiles, int split,
   }
   cp_async_wait<0>();
   __syncthreads();
+  GRAM_TRACE(2);   // loop
   wt.stage(smem, m_off, n_off, lane);
   int a0, a1;
   cluster_sum_strip<kT>(smem, a0, a1);
+  GRAM_TRACE(3);   // cluster_sum
   write_rows<kT>(smem, C, n, lo_a, lo_b, diag, a0, a1);
+  GRAM_TRACE(4);   // write
 }
 
 }  // namespace

@@ -93,8 +93,8 @@ def sparse_project_cuda(X: torch.Tensor, support_idx: torch.Tensor,
     if B * k == 0:
         return out
     lib = _library()
-    with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    context, stream = _build.launch_on(X.device)
+    with context:
         rc = lib.sparse_project_launch(X.data_ptr(), B, n,
                                        support_idx.data_ptr(),
                                        values.data_ptr(), k, cap,

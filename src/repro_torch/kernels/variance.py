@@ -57,8 +57,8 @@ def column_stats_cuda(A: torch.Tensor):
         return out[0], out[1]
     A = A.contiguous()
     lib = _library()
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    context, stream = _build.launch_on(A.device)
+    with context:
         rc = lib.column_stats_launch(A.element_size(), A.data_ptr(), m, n,
                                      out[0].data_ptr(), out[1].data_ptr(),
                                      stream)

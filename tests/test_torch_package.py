@@ -123,6 +123,29 @@ def test_build_name_follows_the_shared_headers(tmp_path, monkeypatch):
     assert _build._target("gram") == after["gram"]
 
 
+def test_phase_trace_reads_marks_the_kernels_carry():
+    """``scripts/gram_phase_trace.py`` reads the columns of the kernels'
+    own ``GRAM_TRACE`` marks (no source text matched): every phase it
+    reads is marked in its kernel, and its copies define the mark ahead
+    of the header's empty default."""
+    import importlib.util
+
+    from repro_torch.kernels import _build
+
+    spec = importlib.util.spec_from_file_location(
+        "gram_phase_trace", REPO / "scripts" / "gram_phase_trace.py")
+    trace = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(trace)
+    assert "#define GRAM_TRACE(col)" in trace.RECORDER
+    assert "#ifndef GRAM_TRACE" in (_build.CSRC / "gram_tc.cuh").read_text()
+    for name, phases in (("gram", trace.K6_PHASES),
+                         ("csr_gram", trace.K3_PHASES)):
+        marks = re.findall(r"GRAM_TRACE\((\d+)\)",
+                           (_build.CSRC / f"{name}.cu").read_text())
+        assert sorted(int(c) for c in marks) == [0] + sorted(
+            col for _, col in phases), name
+
+
 def test_chip_smoke_refuses_without_card_and_outside_checkout(tmp_path):
     env = {"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""}
     out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
