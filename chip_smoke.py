@@ -14,8 +14,11 @@ words, 5 components, target cardinality 5):
   against the reference record in
   ``src/repro_torch/data/reference/spca_run_nytimes.json``; K1 is held
   to its plain version again at every shape the fits launched it with,
-  and the batched solve runs at NYTimes' and PubMed's largest reduced
-  sizes;
+  timed at every n_hat the dense fit launched it at (the 8-sweep solve
+  and the one-sweep fallback apart) beside the floor of its dependency
+  chain, the batched solve runs at NYTimes' and PubMed's largest
+  reduced sizes, and the fit's two solver programs are timed on one
+  clock, with and without the profiler;
 * on the same corpus, the dense row-block pipeline
   (``repro_torch.data.screen_and_gram_streaming`` over 256-row blocks:
   one K5 launch a block for the screen, one K6 launch a block for the
@@ -70,8 +73,15 @@ SERVE_ARGS = ["--docs", "30000", "--words", "102660", "--components", "5",
 KERNELS = ("bcd_fused", "csr_stats", "csr_gram", "project", "variance", "gram",
            "bcd_sweep")
 CHUNK_ROWS, MEGABATCH = 512, 8   # the launcher's default pass geometry
-# what the tensor-core kernels (K3, K6) measure beside the common keys
+# what every kernel measures beside the common keys: its device time alone
+# and the library call's (None where no torch call computes the function)
 DEVICE_KEYS = ("device_ms", "library_device_ms")
+# K1's chain floor: the dependent operations of one box-QP coordinate step
+# (g = w_i - y1 u_i; eta = -g / y1, at least a reciprocal, a multiply and
+# a correction; two clamps; d = eta - u_i; w_(i+1) += X_(i,i+1) d, a
+# multiply and an add): 9, at the 4-cycle dependent-issue latency of the
+# H100's float32 pipes, and nothing for the broadcast between lanes
+COORD_STEP_CYCLES = 9 * 4
 DENSE_BLOCK = 256                # rows of a dense row block (the reference's tests)
 
 
@@ -102,6 +112,21 @@ def bcd_ops(nv, qp_sweeps, tau_iters, sweeps):
     return sweeps * (nv * row + 4 * nv * nv)        # + objective
 
 
+def sm_clock_hz():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return 1e6 * float(out.stdout.split()[0])
+
+
+def bcd_chain_steps(nv, qp_sweeps, sweeps):
+    """Box-QP coordinate steps on K1's dependency chain: every sweep
+    updates nv rows, each in ``qp_sweeps`` passes over its nv - 1 free
+    coordinates, each step needing the w the previous one left."""
+    return sweeps * nv * qp_sweeps * max(nv - 1, 0)
+
+
 def cuda_ms(fn, reps):
     import torch
 
@@ -120,22 +145,25 @@ def cuda_ms(fn, reps):
 def device_ms(fn, reps=20):
     """Device time of one ``fn()`` call: the CUDA kernels that the
     profiler traces in ``reps`` calls, summed, over ``reps``; None where
-    it records no device time.  Unlike `cuda_ms` it leaves out the host's
-    time between launches, which bounds a short kernel's back-to-back
-    rate on this host."""
+    three sessions record no device time.  Unlike `cuda_ms` it leaves out
+    the host's time between launches, which bounds a short kernel's
+    back-to-back rate on this host."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0)
-             or getattr(e, "self_cuda_time_total", 0)
-             for e in prof.key_averages())
-    return us / reps / 1e3 if us else None
+    for _ in range(3):          # a profiler session now and then records nothing
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total", 0)
+                 or getattr(e, "self_cuda_time_total", 0)
+                 for e in prof.key_averages())
+        if us:
+            return us / reps / 1e3
+    return None
 
 
 def host_ms(fn):
@@ -470,22 +498,34 @@ def _device_events(prof):
 
 
 def phase_profile(corpus):
-    """Where the fit's time goes: the default fit under torch.profiler,
-    device time by kernel and the device's busy share of the fit's wall
-    time (host clock, profiler on)."""
+    """Where the fit's time goes, and the two solver programs on one
+    clock: the default fit (``'auto'``: one fused K1 launch a solve, the
+    stall fallback one K1 launch a sweep) and ``solver_impl='jnp'`` (one
+    K1 launch a sweep, the stopping test on the host), each timed by the
+    host clock without the profiler, then under torch.profiler: device
+    time by kernel, K1's device time summed over its launches, and the
+    device's busy share of the fit's wall time (profiler on)."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
+    for impl, phase in (("jnp", "profile_jnp"), ("auto", "profile")):
         t0 = time.perf_counter()
-        _fit_direct(corpus, "auto")
-        wall = time.perf_counter() - t0
-    kernels = _device_events(prof)
-    busy_ms = sum(k[0] for k in kernels)
-    emit("profile", fit_wall_s=wall, device_busy_ms=busy_ms,
-         device_busy_share=busy_ms / 1e3 / wall,
-         top=[{"ms": ms, "count": c, "name": name}
-              for ms, c, name in kernels[:8]])
+        _fit_direct(corpus, impl)
+        bare = time.perf_counter() - t0
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            _fit_direct(corpus, impl)
+            wall = time.perf_counter() - t0
+        kernels = _device_events(prof)
+        busy_ms = sum(k[0] for k in kernels)
+        k1 = [k for k in kernels if "bcd_fused" in k[2]]
+        emit(phase, solver_impl=impl, fit_wall_s_unprofiled=bare,
+             fit_wall_s=wall, device_busy_ms=busy_ms,
+             device_busy_share=busy_ms / 1e3 / wall,
+             k1_device_ms=sum(k[0] for k in k1),
+             k1_launches=sum(k[1] for k in k1),
+             top=[{"ms": ms, "count": c, "name": name}
+                  for ms, c, name in kernels[:8]])
 
 
 def phase_fit_batched(record):
@@ -624,8 +664,10 @@ def phase_timing(corpus, results):
     kw = dict(max_sweeps=8, qp_sweeps=4, tau_iters=80)
     res = bcd_fused.bcd_solve_cuda(S, r.lam, beta, X0, 1e-7, **kw)
     sweeps = int(res[2])
-    ms = cuda_ms(lambda: bcd_fused.bcd_solve_cuda(S, r.lam, beta, X0, 1e-7,
-                                                  **kw), 20)
+    def solve():
+        return bcd_fused.bcd_solve_cuda(S, r.lam, beta, X0, 1e-7, **kw)
+    ms = cuda_ms(solve, 20)
+    dev_ms = device_ms(solve, 10)
     plain = []
     plain_ms = host_ms(lambda: plain.append(ref.bcd_solve_ref(
         S, r.lam, beta, X0, 1e-7, **kw)))
@@ -638,15 +680,64 @@ def phase_timing(corpus, results):
     nbytes = 4 * (3 * n_pad * n_pad + 4 + 8 + 2)
     ops = bcd_ops(n, 4, 80, sweeps)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_FLOPS * 1e3
+    steps = bcd_chain_steps(n, 4, sweeps)
     row = {"n_hat": n, "n_pad": n_pad, "sweeps": sweeps, "ms": ms,
+           "device_ms": dev_ms, "library_device_ms": None,
            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "chain_steps": steps,
+           "chain_bound_ms": steps * COORD_STEP_CYCLES / sm_clock_hz() * 1e3,
            "bytes": nbytes, "flops": ops, "library_ms": None,
            "max_abs_dX": dX, "max_abs_dF": dF, "plain_sweeps": int(kp),
            "supports_equal": supports, "ok": ok}
     emit("timing", **row)
     check(ok, "timing: kernel and plain version disagree at the fit shape")
     return row
+
+
+def phase_fit_shape_timing(corpus, sizes):
+    """K1 at every n_hat the dense fit's ``solver.solve`` spans launched it
+    with: the launcher's fused solve (8 sweeps, float32; the early exit
+    off, as 16 of the fit's 19 solves stall at 8 sweeps) and the one-sweep
+    launch of the stall fallback, timed apart.  The problem at n_hat n is
+    Sigma_hat over the corpus's n highest-variance words at the lambda
+    where the screen keeps exactly them (the (n + 1)-th variance),
+    identity start.  Per row: ms (CUDA events), device ms (profiler), the
+    chain's coordinate steps and its floor (`COORD_STEP_CYCLES` at the
+    card's maximum SM clock), the reps chosen so each shape takes ~0.2 s."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.bcd import default_beta
+    from repro_torch.kernels import bcd_fused
+    from repro_torch.launch.spca_run import dense_stats
+
+    var, build = dense_stats(corpus, torch.device("cuda"))
+    order = np.argsort(-var, kind="stable")
+    clock = sm_clock_hz()
+    rows = []
+    for n in sizes:
+        S = build(np.sort(order[:n]))
+        lam, beta = float(var[order[n]]), default_beta(S)
+        X0 = torch.eye(n, device=S.device)
+        for label, sweeps in (("fused", 8), ("one_sweep", 1)):
+            def solve():
+                return bcd_fused.bcd_solve_cuda(S, lam, beta, X0, -1.0,
+                                                max_sweeps=sweeps,
+                                                qp_sweeps=4, tau_iters=80)
+            reps = int(min(20, max(2, 200.0 / host_ms(solve))))
+            steps = bcd_chain_steps(n, 4, sweeps)
+            row = {"n_hat": n, "launch": label, "sweeps": sweeps,
+                   "reps": reps, "ms": cuda_ms(solve, reps),
+                   "device_ms": device_ms(solve, reps),
+                   "chain_steps": steps,
+                   "chain_bound_ms": steps * COORD_STEP_CYCLES / clock * 1e3,
+                   "plan": dataclasses.asdict(bcd_fused.plan_fused_solve(n))}
+            emit("fit_shape_timing", **row)
+            rows.append(row)
+    return rows
 # ------------------------------------------------- dense row blocks, per-row
 
 
@@ -918,6 +1009,7 @@ def phase_dense_kernel_parity(corpus, dense):
         rerun["gram"] = max(rerun["gram"], rr)
     # K7
     S = dense["S"]
+    clock = sm_clock_hz()
     top = np.argsort(-np.diagonal(S), kind="stable")
     by_dtype = {}
     for dtype in (torch.float64, torch.float32):
@@ -1046,7 +1138,9 @@ def phase_dense_timing(corpus, dense):
         cuda_ms(lambda: ref.column_stats_ref(A), 20),
         cuda_ms(lambda: (A.sum(0), (A * A).sum(0)), 20),
         m * n * 4 + 2 * n * 4, 3 * m * n, shape=[m, n],
-        library="A.sum(0) + (A * A).sum(0)")
+        library="A.sum(0) + (A * A).sum(0)",
+        device_ms=device_ms(lambda: variance.column_stats_cuda(A)),
+        library_device_ms=device_ms(lambda: (A.sum(0), (A * A).sum(0))))
     del A
     order = np.argsort(-corpus.column_stats_exact()[1], kind="stable")
     for label, cols in (("gram", dense["support"]),
@@ -1072,6 +1166,7 @@ def phase_dense_timing(corpus, dense):
                   "slab_rows": plan.slab_rows, "ctas": plan.blocks,
                   "smem_bytes": plan.smem_bytes})
     S = dense["S"]
+    clock = sm_clock_hz()
     top = np.argsort(-np.diagonal(S), kind="stable")
     for n in (48, 192):
         idx = np.sort(top[:n])
@@ -1086,7 +1181,11 @@ def phase_dense_timing(corpus, dense):
         ops = 2 * n * n + 4 * (n - 1) * (2 * n + 10) + 2 * n
         rows[f"qp_sweeps_n{n}"] = row(
             f"qp_sweeps_n{n}", ms, plain, None, (n * n + 4 * n + 1) * 4, ops,
-            n=n, sweeps=4, chain_steps=4 * (n - 1), library=None)
+            n=n, sweeps=4, chain_steps=4 * (n - 1),
+            chain_bound_ms=4 * (n - 1) * COORD_STEP_CYCLES / clock * 1e3,
+            library=None, library_device_ms=None,
+            device_ms=device_ms(
+                lambda: bcd_sweep.qp_sweep_cuda(Y, s, lam, s, 0, 4)))
     return rows
 
 # ---------------------------------------------------------------- streaming
@@ -1510,10 +1609,13 @@ def phase_csr_timing(store, support, mb):
         torch.zeros(n, device=dev).index_add_(0, c64, vf)
         torch.zeros(n, device=dev).index_add_(0, c64, vf * vf)
     lib = cuda_ms(library, 50)
+    dev_ms = device_ms(lambda: csr_stats.csr_column_stats_cuda(v, c, n))
+    lib_dev = device_ms(library)
     nbytes, ops = C * E * 8 + 2 * n * 4, 3 * real
     tb, to = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_FLOPS * 1e3
     rows.append({"name": "csr_stats", "ms": ms, "plain_ms": plain,
                  "library_ms": lib, "library": "2 x index_add_ (float32)",
+                 "device_ms": dev_ms, "library_device_ms": lib_dev,
                  "bound_ms": max(tb, to),
                  "bound_by": "bytes" if tb >= to else "operations",
                  "bytes": nbytes, "ops": ops, "real_entries": real})
@@ -1724,12 +1826,15 @@ def phase_project_timing(record, queries):
         plain = cuda_ms(lambda: ref.sparse_project_ref(X, sd, vd), 50)
         with ref.full_fp32():
             lib = cuda_ms(lambda: X @ Wd, 200)
+            lib_dev = device_ms(lambda: X @ Wd)
+        dev_ms = device_ms(lambda: project.sparse_project_cuda(X, sd, vd))
         nbytes = B * words * 4 + sidx.size * 8 + B * k * 4
         ops = 2 * B * int(live.sum())
         tb, to = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_FLOPS * 1e3
         row = {"name": "sparse_project", "B": B, "n": n, "k": k, "cap": cap,
                "ms": ms, "plain_ms": plain, "library_ms": lib,
                "library": "X @ W, W dense (n, k) float32, TF32 off",
+               "device_ms": dev_ms, "library_device_ms": lib_dev,
                "bound_ms": max(tb, to),
                "bound_by": "bytes" if tb >= to else "operations",
                "bytes": nbytes, "ops": ops, "live_slots": int(live.sum()),
@@ -1849,6 +1954,7 @@ def main():
     worst["float64"] = max(worst["float64"], phase_large_n(corpus))
     row = phase_timing(corpus, results)
     worst["float32"] = max(worst["float32"], row["max_abs_dX"])
+    shape_rows = phase_fit_shape_timing(corpus, shapes["single"])
     phase_profile(corpus)
     # slice (d): the dense row-block pipeline (K5, K6) and the per-row
     # solver (K7), on the dense cell's corpus
@@ -1891,7 +1997,7 @@ def main():
         "max_abs_err": max(worst.values()),
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-        "library_ms": None,
+        "library_ms": None, **{k: row[k] for k in DEVICE_KEYS},
     }]
     for name, replaces in (("csr_stats", "src/repro/kernels/csr_stats.py:43"),
                            ("csr_gram", "src/repro/kernels/csr_gram.py:53")):
@@ -1903,7 +2009,7 @@ def main():
             "max_abs_err": csr_worst[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            **({k: t[k] for k in DEVICE_KEYS} if name == "csr_gram" else {})})
+            **{k: t[k] for k in DEVICE_KEYS}})
     p64 = prow[64]
     kernels.append({
         "name": "sparse_project", "route": "cuda",
@@ -1912,7 +2018,7 @@ def main():
         "launches": served["k4_launches"], "max_abs_err": p_worst,
         "ms": p64["ms"], "plain_ms": p64["plain_ms"],
         "bound_ms": p64["bound_ms"], "bound_by": p64["bound_by"],
-        "library_ms": p64["library_ms"]})
+        "library_ms": p64["library_ms"], **{k: p64[k] for k in DEVICE_KEYS}})
     for name, replaces, launches, t in (
             ("column_stats", "src/repro/kernels/variance.py:19",
              dense_counts["column_stats"], drow["column_stats"]),
@@ -1929,10 +2035,15 @@ def main():
             "max_abs_err": d_worst[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            **({k: t[k] for k in DEVICE_KEYS} if name == "gram" else {})})
+            **{k: t[k] for k in DEVICE_KEYS}})
     emit("kernels", table=[
         {**kernels[0], "replaces_also": "src/repro/kernels/bcd_fused.py:197",
-         "max_abs_err_by_dtype": worst, "chaotic_case_max_abs_dX": chaotic_dX},
+         "max_abs_err_by_dtype": worst, "chaotic_case_max_abs_dX": chaotic_dX,
+         "n_hat": row["n_hat"], "chain_steps": row["chain_steps"],
+         "chain_bound_ms": row["chain_bound_ms"],
+         "fit_shapes": [{k: r[k] for k in (
+             "n_hat", "launch", "ms", "device_ms", "chain_steps",
+             "chain_bound_ms")} for r in shape_rows]},
         {**kernels[1], "run_to_run_max_abs_diff": csr_rerun["csr_stats"],
          "library": trow["csr_stats"]["library"]},
         {**kernels[2], "replaces_also": "src/repro/kernels/csr_gram.py:126",
@@ -1944,7 +2055,8 @@ def main():
         {**kernels[3], "run_to_run_max_abs_diff": p_rerun,
          "library": p64["library"],
          "batch_512": {k: prow[512][k] for k in (
-             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}},
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             *DEVICE_KEYS)}},
         {**kernels[4], "run_to_run_max_abs_diff": d_rerun["column_stats"],
          "library": drow["column_stats"]["library"],
          "shape": drow["column_stats"]["shape"]},
@@ -1955,8 +2067,11 @@ def main():
              *DEVICE_KEYS)}},
         {**kernels[6], "run_to_run_max_abs_diff": d_rerun["qp_sweeps"],
          "max_abs_err_by_dtype": k7_by_dtype, "n": 192,
+         "chain_steps": drow["qp_sweeps_n192"]["chain_steps"],
+         "chain_bound_ms": drow["qp_sweeps_n192"]["chain_bound_ms"],
          "n_48": {k: drow["qp_sweeps_n48"][k] for k in (
-             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}])
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "chain_bound_ms", *DEVICE_KEYS)}}])
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -3,17 +3,21 @@ and its launch plan.
 
 Port of ``repro.kernels.bcd_fused`` (TPU kernels `_bcd_resident_kernel`
 and `_bcd_tiled_kernel`).  The kernel (``csrc/bcd_fused.cu``) runs every
-sweep of B independent problems in ONE launch, grid = (B,), one CTA per
-problem; see the source for the design and what bounds it.  Its plain
-version is `kernels.ref.bcd_solve_masked_ref` / `bcd_solve_batched_ref`.
+sweep of B independent problems in ONE launch, one warp per problem and
+up to `MAX_PROBLEMS_PER_CTA` problems a CTA; see the source for the
+design and what bounds it.  Its plain version is
+`kernels.ref.bcd_solve_masked_ref` / `bcd_solve_batched_ref`.
 
 Two schemes replace the TPU's VMEM budgets (a TPU core's ~16 MB, which do
 not carry over to a 227 KB block):
 
-* ``smem``   — X lives in the block's shared memory for the whole solve;
-  chosen when ``n_pad^2`` words plus the vectors fit in 227 KB (float32:
-  n_pad <= 224, float64: n_pad <= 160).
-* ``global`` — X is updated in place in the output buffer (L2 / HBM).
+* ``smem``   — X lives in the CTA's shared memory for the whole solve,
+  the vectors in registers (``slots`` = n_pad / 32 a lane); chosen when
+  its ``n_pad^2`` words (and a slack row) fit in 227 KB (float32: n_pad
+  <= 224, float64: n_pad <= 160).
+* ``global`` — X is updated in place in the output buffer (L2 / HBM),
+  the vectors, X's diagonal and a ring of the rows the box QP reads next
+  in shared memory (12 n_pad words a problem; 6 where that does not fit).
 
 Problems are zero-padded to a multiple of 32 (a warp), not the TPU's 128
 lanes: the padding is never computed on (every loop stops at n_valid), and
@@ -32,8 +36,8 @@ import torch
 from . import _build
 
 SMEM_LIMIT_BYTES = 232_448        # dynamic shared memory one H100 block may use
-MAX_THREADS = 512
-_RED_SLOTS = MAX_THREADS // 32
+MAX_PROBLEMS_PER_CTA = 4          # one warp each: one per SM sub-partition
+GLOBAL_RINGS = (8, 2)             # rows of X in flight, deepest that fits
 _SCHEME_CODES = {"smem": 0, "global": 1}
 
 launches = 0                      # kernel launches since the last reset
@@ -52,46 +56,70 @@ def pad32(n: int) -> int:
 class SolvePlan:
     """How one launch executes a (batch of) whole solve(s) on the card."""
 
-    scheme: str         # 'smem' | 'global'
-    n_pad: int          # problem size padded to a multiple of 32
-    threads: int        # CTA size
-    smem_bytes: int     # dynamic shared memory of one CTA
+    scheme: str             # 'smem' | 'global'
+    n_pad: int              # problem size padded to a multiple of 32
+    slots: int              # n_pad / 32: the vector slots each lane owns
+    problems_per_cta: int   # problems a CTA solves, one warp each
+    threads: int            # CTA size: 32 x problems_per_cta
+    ctas: int               # CTAs of the launch: ceil(batch / problems_per_cta)
+    smem_bytes: int         # dynamic shared memory of one CTA
+    ring: int               # global: rows of X in flight to the box QP
 
 
-def smem_bytes(scheme: str, n_pad: int, itemsize: int) -> int:
-    words = 3 * n_pad + _RED_SLOTS
-    if scheme == "smem":
-        words += n_pad * n_pad
+def ring_rows(n_pad: int, itemsize: int) -> int:
+    """Rows of X the ``global`` scheme keeps in flight: the deepest of
+    `GLOBAL_RINGS` whose ring fits beside the vectors (the shallowest if
+    none does, and then the plan refuses the size)."""
+    for rows in GLOBAL_RINGS:
+        if (4 + rows) * n_pad * itemsize <= SMEM_LIMIT_BYTES:
+            return rows
+    return GLOBAL_RINGS[-1]
+
+
+def problem_smem_bytes(scheme: str, n_pad: int, itemsize: int) -> int:
+    """Shared memory one problem takes: X and a slack of n_pad + 32 words
+    that the box QP's look-ahead reads past the last row (``smem``), or
+    w, u, s, X's diagonal and a ring of `ring_rows` rows of X
+    (``global``)."""
+    words = (n_pad * n_pad + n_pad + 32 if scheme == "smem"
+             else (4 + ring_rows(n_pad, itemsize)) * n_pad)
     return words * itemsize
 
 
-def plan_fused_solve(n: int, itemsize: int = 4,
-                     scheme: str = "auto") -> SolvePlan:
-    """The launch plan at reduced size ``n``: ``smem`` when X fits the
-    block's shared memory, else ``global``; a forced ``scheme`` is taken
-    as given (``smem`` raises if it does not fit).  The batch size does
-    not enter: each problem has its own CTA."""
+def plan_fused_solve(n: int, itemsize: int = 4, scheme: str = "auto",
+                     batch: int = 1) -> SolvePlan:
+    """The launch plan for ``batch`` problems at reduced size ``n``:
+    ``smem`` when one problem's X fits a block's shared memory, else
+    ``global``; a forced ``scheme`` is taken as given (``smem`` raises if
+    it does not fit).  A CTA takes as many of the batch's problems as fit
+    its shared memory, at most `MAX_PROBLEMS_PER_CTA`."""
     n_pad = pad32(n)
-    threads = min(n_pad, MAX_THREADS)
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
     if scheme == "auto":
-        scheme = ("smem" if smem_bytes("smem", n_pad, itemsize)
+        scheme = ("smem" if problem_smem_bytes("smem", n_pad, itemsize)
                   <= SMEM_LIMIT_BYTES else "global")
     if scheme not in _SCHEME_CODES:
         raise ValueError(f"unknown scheme {scheme!r} (auto | smem | global)")
-    need = smem_bytes(scheme, n_pad, itemsize)
-    if need > SMEM_LIMIT_BYTES:
+    one = problem_smem_bytes(scheme, n_pad, itemsize)
+    if one > SMEM_LIMIT_BYTES:
         raise ValueError(
-            f"scheme 'smem' needs {need} B of shared memory at n_pad={n_pad}, "
-            f"over the {SMEM_LIMIT_BYTES} B a block may use")
-    return SolvePlan(scheme, n_pad, threads, need)
+            f"scheme {scheme!r} needs {one} B of shared memory at "
+            f"n_pad={n_pad}, over the {SMEM_LIMIT_BYTES} B a block may use")
+    per_cta = min(batch, MAX_PROBLEMS_PER_CTA, SMEM_LIMIT_BYTES // one)
+    return SolvePlan(scheme, n_pad, n_pad // 32, per_cta, 32 * per_cta,
+                     -(-batch // per_cta), one * per_cta,
+                     ring_rows(n_pad, itemsize) if scheme == "global" else 0)
 
 
 def _library():
     lib = _build.load("bcd_fused")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.bcd_fused_launch.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.bcd_fused_launch.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.bcd_fused_launch.restype = i
+        lib.bcd_fused_divide.argtypes = [p, p, p, ctypes.c_longlong, p]
+        lib.bcd_fused_divide.restype = i
         lib.bcd_fused_error_string.argtypes = [i]
         lib.bcd_fused_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -123,8 +151,9 @@ def launch(Sigma3, X03, scal, *, plan: SolvePlan, max_sweeps: int,
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"bcd_fused: {name} must be contiguous {shape}, "
                              f"got {tuple(t.shape)}")
-    if n_pad != plan.n_pad:
-        raise ValueError(f"bcd_fused: n_pad {n_pad} != plan {plan.n_pad}")
+    if n_pad != plan.n_pad or -(-B // plan.problems_per_cta) != plan.ctas:
+        raise ValueError(f"bcd_fused: (B, n_pad) ({B}, {n_pad}) is not the "
+                         f"plan's {plan}")
     if min(max_sweeps, qp_sweeps, tau_iters) < 0:
         raise ValueError("bcd_fused: sweep and iteration counts must be >= 0")
     lib = _library()
@@ -137,7 +166,8 @@ def launch(Sigma3, X03, scal, *, plan: SolvePlan, max_sweeps: int,
             Sigma3.element_size(), _SCHEME_CODES[plan.scheme],
             Sigma3.data_ptr(), X03.data_ptr(), scal.data_ptr(),
             X.data_ptr(), hist.data_ptr(), meta.data_ptr(),
-            B, n_pad, max_sweeps, qp_sweeps, tau_iters, plan.threads, stream,
+            B, n_pad, max_sweeps, qp_sweeps, tau_iters, plan.problems_per_cta,
+            plan.ring, stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -146,6 +176,28 @@ def launch(Sigma3, X03, scal, *, plan: SolvePlan, max_sweeps: int,
     global launches
     launches += 1
     return X, hist, meta
+
+
+def divide_on_card(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x / y`` by the kernel's float32 division (the divisor's reciprocal
+    formed ahead of the dividend), for the test that holds it to the
+    card's IEEE division bit for bit; float32 CUDA tensors of one shape.
+    Not counted in `launches`: it runs no solve."""
+    if not (x.is_cuda and y.is_cuda) or x.dtype != torch.float32 \
+            or y.dtype != torch.float32 or x.shape != y.shape:
+        raise ValueError("bcd_fused.divide_on_card: needs float32 CUDA "
+                         "tensors of one shape")
+    x, y = x.contiguous(), y.contiguous()
+    q = torch.empty_like(x)
+    lib = _library()
+    context, stream = _build.launch_on(x.device)
+    with context:
+        rc = lib.bcd_fused_divide(x.data_ptr(), y.data_ptr(), q.data_ptr(),
+                                  x.numel(), stream)
+    if rc != 0:
+        raise RuntimeError("bcd_fused divide failed: "
+                           f"{lib.bcd_fused_error_string(rc).decode()}")
+    return q
 
 
 def _pad_stack(Sigma3, X03, n_pad):
@@ -165,7 +217,7 @@ def bcd_solve_batched_cuda(Sigmas, lams, betas, X0s, tol, n_valids, *,
     history (B, max_sweeps))``; ``obj`` is the barrier-free F at exit."""
     B, n, _ = Sigmas.shape
     dtype, dev = Sigmas.dtype, Sigmas.device
-    plan = plan_fused_solve(n, Sigmas.element_size(), scheme)
+    plan = plan_fused_solve(n, Sigmas.element_size(), scheme, B)
     Sigma3, X03 = _pad_stack(Sigmas, X0s.to(dtype), plan.n_pad)
     scal = torch.stack([
         torch.as_tensor(lams, dtype=dtype, device=dev).reshape(-1).expand(B),

@@ -45,7 +45,7 @@
 #include <cuda_runtime.h>
 
 // Phase marks: GRAM_TRACE(0) where a CTA starts, GRAM_TRACE(k) at the end
-// of phase k.  Empty here; scripts/gram_phase_trace.py builds copies that
+// of phase k.  Empty here; scripts/phase_trace.py builds copies that
 // define it to record the clocks.
 #ifndef GRAM_TRACE
 #define GRAM_TRACE(col) ((void)0)

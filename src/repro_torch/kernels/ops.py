@@ -121,7 +121,7 @@ def bcd_solve_batched(Sigmas, lams, betas, X0s, n_valids, *,
                       max_sweeps: int = 20, qp_sweeps: int = 4,
                       tol: float = 1e-7, tau_iters: int = 80,
                       impl: str = "auto", scheme: str = "auto"):
-    """B independent whole solves in ONE launch (grid = (B,)).
+    """B independent whole solves in ONE launch (one warp a problem).
 
     ``Sigmas``/``X0s`` are (B, n, n) zero-padded problems occupying their
     leading ``n_valids[b]`` coordinates.  Returns ``(X (B,n,n), obj (B,),

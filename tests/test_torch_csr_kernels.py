@@ -244,3 +244,48 @@ def test_gram_plan_has_no_support_cap_but_a_row_cap():
     assert tgram.plan_csr_gram(100, 1216, 8).slabs == 8
     with pytest.raises(ValueError, match="shared memory"):
         tgram.plan_csr_gram(100, 1217)
+
+
+@pytest.mark.parametrize("entries,n,blocks,slots", [
+    (8 * 16384, 102_660, 128, 2048),   # the streaming fit's megabatch
+    (16384, 102_660, 26, 2048),        # one chunk: the finish sets the grid
+    (40 * 16384, 700_000, 132, 4096),  # one CTA an SM; the table clamped
+    (0, 5, 1, 256),                    # an empty megabatch still writes zeros
+    (3, 10, 1, 256),
+])
+def test_csr_stats_plan_sizes_grid_and_table(entries, n, blocks, slots):
+    """K2's plan: CTAs for the entries (one a thread) or the finish (four
+    columns a thread), at most one an SM; a table of twice a CTA's share
+    of the entries, a power of two in [256, 4096], 20 bytes a slot."""
+    from repro_torch.kernels import csr_stats
+
+    plan = csr_stats.plan_csr_stats(entries, n)
+    assert (plan.blocks, plan.table_slots) == (blocks, slots)
+    assert plan.share == -(-entries // blocks)
+    assert plan.table_slots & (plan.table_slots - 1) == 0
+    assert plan.table_slots >= min(2 * plan.share, csr_stats.MAX_SLOTS)
+    assert plan.smem_bytes == 20 * plan.table_slots
+    with pytest.raises(ValueError):
+        csr_stats.plan_csr_stats(entries, 0)
+
+
+def test_csr_stats_workspace_is_kept_per_stream_and_grown():
+    """The accumulator is made zeroed once per (device, stream), reused,
+    and replaced by a larger zeroed one when a call needs more columns."""
+    from repro_torch.kernels import csr_stats
+
+    dev = torch.device("cpu")
+    saved = dict(csr_stats._scratch)
+    try:
+        csr_stats._scratch.clear()
+        a = csr_stats.workspace(dev, 7, 1000)
+        assert a.dtype == torch.float64 and a.numel() >= 2000
+        assert int(torch.count_nonzero(a)) == 0
+        assert csr_stats.workspace(dev, 7, 1000) is a
+        assert csr_stats.workspace(dev, 8, 1000) is not a
+        big = csr_stats.workspace(dev, 7, 400_000)
+        assert big is not a and big.numel() >= 800_000
+        assert csr_stats.workspace(dev, 7, 1000) is big
+    finally:
+        csr_stats._scratch.clear()
+        csr_stats._scratch.update(saved)

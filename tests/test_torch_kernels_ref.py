@@ -131,12 +131,42 @@ def test_float32_oracle_stays_float32():
     (160, 8, "smem"), (161, 8, "global"),
 ])
 def test_plan_fused_solve_schemes(n, itemsize, scheme):
+    """One warp per problem: a lone solve is one CTA of one warp; X's
+    n_pad^2 words and a slack row in shared memory (``smem``) or 4 n_pad
+    words of vectors (``global``)."""
     plan = ops.plan_fused_solve(n, itemsize)
     assert plan.scheme == scheme
     assert plan.n_pad % 32 == 0 and plan.n_pad >= n
-    assert plan.threads == min(plan.n_pad, bcd_fused.MAX_THREADS)
-    assert plan.smem_bytes <= bcd_fused.SMEM_LIMIT_BYTES
+    assert plan.slots == plan.n_pad // 32
+    assert (plan.problems_per_cta, plan.threads, plan.ctas) == (1, 32, 1)
+    words = (plan.n_pad ** 2 + plan.n_pad + 32 if scheme == "smem"
+             else (4 + plan.ring) * plan.n_pad)
+    assert plan.ring == (0 if scheme == "smem" else 8)
+    assert plan.smem_bytes == words * itemsize <= bcd_fused.SMEM_LIMIT_BYTES
+    if scheme == "smem":       # the kernel's register slots: 1-7 f32, 1-5 f64
+        assert 1 <= plan.slots <= (7 if itemsize == 4 else 5)
     assert ops.plan_fused_solve(n, itemsize, scheme="global").scheme == "global"
+
+
+@pytest.mark.parametrize("n,itemsize,batch,per_cta,ctas", [
+    (40, 4, 4, 4, 1),       # the batched fit's shape: one CTA, four warps
+    (60, 4, 9, 4, 3),       # a ragged last CTA (one problem of four)
+    (224, 4, 4, 1, 4),      # one X of 200 KB fills a CTA's shared memory
+    (128, 4, 4, 3, 2),      # three 65 KB X a CTA
+    (160, 8, 2, 1, 2),
+    (1000, 4, 4, 4, 1),     # global: 48 KB of vectors and rows a problem
+    (2000, 8, 8, 1, 8),     # global: 192 KB a problem
+    (4000, 8, 2, 1, 2),     # global: 8 rows do not fit, 2 do (192 KB)
+])
+def test_plan_fused_solve_shares_ctas_by_shared_memory(n, itemsize, batch,
+                                                      per_cta, ctas):
+    plan = ops.plan_fused_solve(n, itemsize, batch=batch)
+    assert (plan.problems_per_cta, plan.ctas) == (per_cta, ctas)
+    assert plan.threads == 32 * per_cta
+    assert plan.smem_bytes == per_cta * bcd_fused.problem_smem_bytes(
+        plan.scheme, plan.n_pad, itemsize) <= bcd_fused.SMEM_LIMIT_BYTES
+    with pytest.raises(ValueError, match="batch"):
+        ops.plan_fused_solve(n, itemsize, batch=0)
 
 
 def test_plan_refuses_smem_that_does_not_fit():
@@ -232,3 +262,65 @@ def test_float32_blowup_is_the_reference_oracles():
                                      torch.tensor(X064), -1.0, 40, **kw),
            jref.bcd_solve_masked_ref(jnp.asarray(S64), lam, beta,
                                      jnp.asarray(X064), -1.0, 40, **kw))
+
+
+def _solve_tau_fixed_point(R2, c, beta, tau_iters=80):
+    """`ref.solve_tau` with K1's exit: stop once a step leaves (lo, hi)
+    unchanged (every later step would repeat it).  Returns (tau, steps)."""
+    ft = type(R2)
+    one, zero, half = ft(1.0), ft(0.0), ft(0.5)
+    with np.errstate(over="ignore", invalid="ignore", divide="ignore"):
+        hi = max(one, -c) + np.sqrt(max(R2, zero)) + beta + one
+        lo = min(beta / (beta + max(-c, zero) + one), hi) * ft(1e-12)
+        steps = 0
+        while steps < tau_iters:
+            steps += 1
+            mid = half * (lo + hi)
+            g = mid + c - R2 / (mid * mid) - beta / mid
+            if g < 0:
+                if mid == lo:
+                    break
+                lo = mid
+            else:
+                if mid == hi:
+                    break
+                hi = mid
+        return half * (lo + hi), steps
+
+
+@pytest.mark.parametrize("ft,median_steps", [(np.float32, (24, 40)),
+                                             (np.float64, (50, 70))])
+def test_tau_fixed_point_exit_is_bit_identical(ft, median_steps):
+    """The bisection stopped at its fixed point returns the very bits of
+    the 80-step `ref.solve_tau`, on 3,000 seeded draws of (R2, c, beta)
+    over 12 decades and on the edges (R2 = 0, c large and negative, NaN
+    and inf, which never reach a fixed point or reach it at once); the
+    steps taken are held, so the saving is on record."""
+    rng = np.random.default_rng(11)
+    draws = [(ft(0.0 if rng.random() < 0.1 else 10 ** rng.uniform(-8, 4)),
+              ft(rng.normal() * 10 ** rng.uniform(-3, 3)),
+              ft(10 ** rng.uniform(-8, 0))) for _ in range(3000)]
+    nan, inf = ft(np.nan), ft(np.inf)
+    edges = [(ft(0), ft(0.5), ft(1e-4)), (ft(0), ft(-1e6), ft(1e-4)),
+             (ft(3.0), ft(-1e30), ft(1e-6)), (nan, ft(1.0), ft(1e-4)),
+             (ft(1.0), nan, ft(1e-4)), (ft(1.0), ft(1.0), nan),
+             (inf, ft(1.0), ft(1e-4)), (ft(1.0), -inf, ft(1e-4)),
+             (ft(1.0), inf, ft(1e-4))]
+    steps = []
+    for R2, c, beta in draws + edges:
+        want = tref.solve_tau(R2, c, beta, 80)
+        got, k = _solve_tau_fixed_point(R2, c, beta, 80)
+        assert type(got) is type(want) is ft
+        assert np.asarray(got).tobytes() == np.asarray(want).tobytes(), (
+            R2, c, beta)
+        steps.append(k)
+    drawn = np.array(steps[:len(draws)])
+    assert median_steps[0] <= np.median(drawn) <= median_steps[1]
+    assert 1 <= drawn.min() and drawn.max() <= 80
+    assert steps[len(draws) + 3] == 80        # a NaN bracket never settles
+    for tau_iters in (0, 1, 5):               # shorter budgets: the same rule
+        for R2, c, beta in draws[:200]:
+            want = tref.solve_tau(R2, c, beta, tau_iters)
+            got, k = _solve_tau_fixed_point(R2, c, beta, tau_iters)
+            assert np.asarray(got).tobytes() == np.asarray(want).tobytes()
+            assert k <= tau_iters

@@ -124,16 +124,17 @@ def test_build_name_follows_the_shared_headers(tmp_path, monkeypatch):
 
 
 def test_phase_trace_reads_marks_the_kernels_carry():
-    """``scripts/gram_phase_trace.py`` reads the columns of the kernels'
-    own ``GRAM_TRACE`` marks (no source text matched): every phase it
-    reads is marked in its kernel, and its copies define the mark ahead
-    of the header's empty default."""
+    """``scripts/phase_trace.py`` reads the columns of the kernels' own
+    phase marks (no source text matched): every phase it reads is marked
+    in its kernel, and its copies define the marks ahead of the headers'
+    empty defaults: ``GRAM_TRACE`` in K3 and K6, ``PHASE_*`` in K1 (the
+    spans of a solve's phases and its bisection steps) and K2."""
     import importlib.util
 
     from repro_torch.kernels import _build
 
     spec = importlib.util.spec_from_file_location(
-        "gram_phase_trace", REPO / "scripts" / "gram_phase_trace.py")
+        "phase_trace", REPO / "scripts" / "phase_trace.py")
     trace = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(trace)
     assert "#define GRAM_TRACE(col)" in trace.RECORDER
@@ -144,6 +145,22 @@ def test_phase_trace_reads_marks_the_kernels_carry():
                            (_build.CSRC / f"{name}.cu").read_text())
         assert sorted(int(c) for c in marks) == [0] + sorted(
             col for _, col in phases), name
+    for mark in ("START", "MARK", "SPAN", "COUNT"):
+        assert f"#define PHASE_{mark}(" in trace.RECORDER
+    assert "#ifndef PHASE_START" in (
+        _build.CSRC / "phase_trace.cuh").read_text()
+    for name, cols in (
+            ("csr_stats", {c for _, c in trace.K2_PHASES}),
+            ("bcd_fused", {c for _, c in trace.K1_PHASES}
+             | {trace.K1_TAU_STEPS, trace.K1_END})):
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "phase_trace.cuh"' in src, name
+        assert re.search(r"PHASE_START\(", src), name
+        marked = {int(c) for c in re.findall(
+            r"PHASE_(?:MARK|SPAN|COUNT)\([^;]*?,\s*(\d+)\s*[,)]", src)}
+        assert marked == cols, (name, marked, cols)
+    assert set(trace.SOURCES.values()) == {"bcd_fused", "csr_stats",
+                                           "csr_gram", "gram"}
 
 
 def test_chip_smoke_refuses_without_card_and_outside_checkout(tmp_path):
@@ -183,6 +200,138 @@ def test_kernel_matches_plain_version_on_card(cuda, dtype, scheme):
     if dtype == torch.float64:
         torch.testing.assert_close(got[0], want[0], rtol=1e-10, atol=1e-10)
     torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)
+
+
+def _hold_k1(S, X0, lams, betas, sizes, kw, dtype, scheme="auto"):
+    """K1 against its plain version (on the host): float64 X and F to
+    1e-10, float32 F to 1e-4 relative; equal sweep counts."""
+    from repro_torch.kernels import ops
+
+    got = ops.bcd_solve_batched(S, lams, betas, X0, sizes, impl="cuda",
+                                scheme=scheme, **kw)
+    want = ops.bcd_solve_batched(S.cpu(), lams, betas, X0.cpu(), sizes,
+                                 impl="ref", **kw)
+    got = [g.cpu() for g in got]
+    assert torch.equal(got[2], want[2])
+    if dtype == torch.float64:
+        torch.testing.assert_close(got[0], want[0], rtol=1e-10, atol=1e-10)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_valid", [1, 31, 32, 33, 224])
+def test_warp_kernel_at_lane_edges_on_card(cuda, dtype, n_valid):
+    """One warp a problem: n_valid 1 (no free coordinate), 31/32/33 about
+    a lane slot's edge, 224 (seven slots, the float32 ``smem`` limit; the
+    ``global`` scheme in float64), in every scheme that fits."""
+    from repro_torch.kernels import bcd_fused
+    from repro_torch.testing import covariance_problems
+
+    rng = np.random.default_rng(n_valid)
+    S, X0, lams, betas = covariance_problems(
+        rng, [n_valid], bcd_fused.pad32(n_valid),
+        np.float32 if dtype == torch.float32 else np.float64)
+    S, X0 = (torch.from_numpy(a).to(cuda) for a in (S, X0))
+    kw = dict(max_sweeps=2, qp_sweeps=2, tol=-1.0)
+    for scheme in ("smem", "global"):
+        try:
+            bcd_fused.plan_fused_solve(n_valid, S.element_size(), scheme)
+        except ValueError:
+            continue
+        _hold_k1(S, X0, lams, betas, [n_valid], kw, dtype, scheme)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("scheme", ["smem", "global"])
+def test_batch_sharing_a_cta_and_no_bisection_on_card(cuda, dtype, scheme):
+    """Nine problems of mixed n_valid, four warps a CTA (the last CTA has
+    one), against the plain version; then ``tau_iters`` 0 (tau the
+    bracket's midpoint) on the same batch."""
+    from repro_torch.kernels import bcd_fused
+    from repro_torch.testing import covariance_problems
+
+    sizes = [60, 33, 1, 47, 64, 32, 2, 59, 17]
+    plan = bcd_fused.plan_fused_solve(64, dtype.itemsize, scheme, len(sizes))
+    assert (plan.problems_per_cta, plan.ctas) == (4, 3)
+    S, X0, lams, betas = covariance_problems(
+        np.random.default_rng(7), sizes, 64,
+        np.float32 if dtype == torch.float32 else np.float64)
+    S, X0 = (torch.from_numpy(a).to(cuda) for a in (S, X0))
+    for tau_iters in (80, 0):
+        kw = dict(max_sweeps=2, qp_sweeps=2, tol=-1.0, tau_iters=tau_iters)
+        _hold_k1(S, X0, lams, betas, sizes, kw, dtype, scheme)
+
+
+@pytest.mark.gpu
+def test_kernel_division_is_the_cards_ieee_division(cuda):
+    """K1 divides with the divisor's reciprocal formed ahead of the
+    dividend: its quotients equal the card's IEEE `x / y` bit for bit,
+    over 2^22 pairs spanning the exponent range and its edges (signed
+    zeros, denormals, the fast path's range bounds, inf and NaN)."""
+    from repro_torch.kernels import bcd_fused
+
+    rng = np.random.default_rng(5)
+    n = 1 << 22
+
+    def draw():
+        v = (rng.uniform(1, 2, n) * 2.0 ** rng.integers(-149, 128, n)
+             * rng.choice([-1, 1], n)).astype(np.float32)
+        near = rng.random(n) < 0.5                 # half near the fit's values
+        v[near] = (rng.standard_normal(near.sum()) * 10.0 ** rng.uniform(
+            -6, 4, near.sum())).astype(np.float32)
+        edge = np.array([0.0, -0.0, 1e-45, -1e-45, 1.1754942e-38, 2.0 ** -60,
+                         2.0 ** 60, np.nextafter(np.float32(2.0 ** -60), 0),
+                         np.nextafter(np.float32(2.0 ** 60), np.inf),
+                         3.4028235e38, np.inf, -np.inf, np.nan, 1.0],
+                        np.float32)
+        v[rng.integers(0, n, 4096)] = rng.choice(edge, 4096)
+        return v
+
+    x, y = (torch.from_numpy(draw()).to(cuda) for _ in range(2))
+    got = bcd_fused.divide_on_card(x, y)
+    want = x / y
+    same = got.view(torch.int32) == want.view(torch.int32)
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    assert bool((same | both_nan).all()), int((~(same | both_nan)).sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["one_hot_column", "table_overflow"])
+def test_csr_stats_table_and_workspace_on_card(cuda, case):
+    """K2 on integer counts: one column holding most entries (the table's
+    hot slot), and more distinct columns in a CTA's share than its table
+    holds (entries past the probes go straight to the accumulator).
+    Exact against the plain version, identical run to run, and the
+    stream's workspace zero after each call."""
+    from repro_torch.kernels import _build, csr_stats, ops
+
+    rng = np.random.default_rng(3)
+    if case == "one_hot_column":              # the streaming fit's shape
+        C, E, n = 8, 16384, 102_660
+        cols = rng.integers(0, n, size=(C, E))
+        cols[rng.random((C, E)) < 0.9] = 4242
+    else:                                     # every column distinct
+        C, E, n = 40, 16384, 700_000
+        cols = rng.permutation(n)[:C * E].reshape(C, E)
+        plan = csr_stats.plan_csr_stats(C * E, n)
+        assert plan.share > plan.table_slots == csr_stats.MAX_SLOTS
+    vals = rng.integers(1, 6, size=(C, E)).astype(np.float32)
+    vals[:, -100:] = 0                        # padding
+    cols = cols.astype(np.int32)
+    cols[0, :5] = [-1, n, n + 7, -9, 0]       # dropped, and a real column 0
+    v, c = torch.from_numpy(vals).to(cuda), torch.from_numpy(cols).to(cuda)
+    want = ops.csr_column_stats(v, c, n=n, impl="ref")
+    first = ops.csr_column_stats(v, c, n=n, impl="cuda")
+    second = ops.csr_column_stats(v, c, n=n, impl="cuda")
+    for a, b, w in zip(first, second, want):
+        assert torch.equal(a, w) and torch.equal(b, w)
+    torch.cuda.synchronize()
+    _, stream = _build.launch_on(cuda)
+    acc = csr_stats.workspace(cuda, stream, n)
+    assert int(torch.count_nonzero(acc)) == 0
 
 
 def _csr_megabatch(C, E, R, n, nnz, seed):
