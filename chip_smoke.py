@@ -127,6 +127,23 @@ def bcd_chain_steps(nv, qp_sweeps, sweeps):
     return sweeps * nv * qp_sweeps * max(nv - 1, 0)
 
 
+def chain_bound(nbytes, ops, steps, clock, flops=None):
+    """The bound of a box-QP kernel (K1, K7): the largest of its bytes
+    over the memory rate, its operations over the float32 rate, and its
+    chain of ``steps`` dependent coordinate steps at `COORD_STEP_CYCLES`
+    each on the SM ``clock`` (Hz).  The chain is operations too, each
+    waiting on the last, so where it is the largest ``bound_by`` is
+    ``operations``; the three floors are kept apart for the timing lines."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / (flops or H100_F32_FLOPS) * 1e3
+    t_chain = steps * COORD_STEP_CYCLES / clock * 1e3
+    bound = max(t_bytes, t_ops, t_chain)
+    return {"bound_ms": bound,
+            "bound_by": "bytes" if t_bytes == bound else "operations",
+            "bytes_bound_ms": t_bytes, "ops_bound_ms": t_ops,
+            "chain_steps": steps, "chain_bound_ms": t_chain}
+
+
 def cuda_ms(fn, reps):
     import torch
 
@@ -643,10 +660,10 @@ def phase_large_n(corpus):
     return worst
 
 
-def phase_timing(corpus, results):
+def phase_timing(corpus, results, clock):
     """K1 at the fit's shape: the first PC's cold solve (n_hat from the
     fit, float32, the launcher's sweep budget, early exit on) — kernel vs
-    plain version, beside its bound.  The two results are held to each
+    plain version, beside its bound (`chain_bound`).  The two results are held to each
     other: F to 1e-4 relative and identical supports (the early exit sits
     at float32's resolution of F, so the sweep counts are printed, not
     held)."""
@@ -679,14 +696,10 @@ def phase_timing(corpus, results):
     n_pad = bcd_fused.pad32(n)
     nbytes = 4 * (3 * n_pad * n_pad + 4 + 8 + 2)
     ops = bcd_ops(n, 4, 80, sweeps)
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_FLOPS * 1e3
-    steps = bcd_chain_steps(n, 4, sweeps)
     row = {"n_hat": n, "n_pad": n_pad, "sweeps": sweeps, "ms": ms,
            "device_ms": dev_ms, "library_device_ms": None,
-           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "chain_steps": steps,
-           "chain_bound_ms": steps * COORD_STEP_CYCLES / sm_clock_hz() * 1e3,
+           "plain_ms": plain_ms,
+           **chain_bound(nbytes, ops, bcd_chain_steps(n, 4, sweeps), clock),
            "bytes": nbytes, "flops": ops, "library_ms": None,
            "max_abs_dX": dX, "max_abs_dF": dF, "plain_sweeps": int(kp),
            "supports_equal": supports, "ok": ok}
@@ -695,7 +708,7 @@ def phase_timing(corpus, results):
     return row
 
 
-def phase_fit_shape_timing(corpus, sizes):
+def phase_fit_shape_timing(corpus, sizes, clock):
     """K1 at every n_hat the dense fit's ``solver.solve`` spans launched it
     with: the launcher's fused solve (8 sweeps, float32; the early exit
     off, as 16 of the fit's 19 solves stall at 8 sweeps) and the one-sweep
@@ -703,8 +716,9 @@ def phase_fit_shape_timing(corpus, sizes):
     Sigma_hat over the corpus's n highest-variance words at the lambda
     where the screen keeps exactly them (the (n + 1)-th variance),
     identity start.  Per row: ms (CUDA events), device ms (profiler), the
-    chain's coordinate steps and its floor (`COORD_STEP_CYCLES` at the
-    card's maximum SM clock), the reps chosen so each shape takes ~0.2 s."""
+    bound (`chain_bound`: bytes, operations and the chain's coordinate
+    steps at `COORD_STEP_CYCLES` each on the card's maximum SM clock), the
+    reps chosen so each shape takes ~0.2 s."""
     import dataclasses
 
     import numpy as np
@@ -716,7 +730,6 @@ def phase_fit_shape_timing(corpus, sizes):
 
     var, build = dense_stats(corpus, torch.device("cuda"))
     order = np.argsort(-var, kind="stable")
-    clock = sm_clock_hz()
     rows = []
     for n in sizes:
         S = build(np.sort(order[:n]))
@@ -728,12 +741,12 @@ def phase_fit_shape_timing(corpus, sizes):
                                                 max_sweeps=sweeps,
                                                 qp_sweeps=4, tau_iters=80)
             reps = int(min(20, max(2, 200.0 / host_ms(solve))))
-            steps = bcd_chain_steps(n, 4, sweeps)
+            nbytes = 4 * (3 * bcd_fused.pad32(n) ** 2 + 4 + sweeps + 2)
             row = {"n_hat": n, "launch": label, "sweeps": sweeps,
                    "reps": reps, "ms": cuda_ms(solve, reps),
                    "device_ms": device_ms(solve, reps),
-                   "chain_steps": steps,
-                   "chain_bound_ms": steps * COORD_STEP_CYCLES / clock * 1e3,
+                   **chain_bound(nbytes, bcd_ops(n, 4, 80, sweeps),
+                                 bcd_chain_steps(n, 4, sweeps), clock),
                    "plan": dataclasses.asdict(bcd_fused.plan_fused_solve(n))}
             emit("fit_shape_timing", **row)
             rows.append(row)
@@ -1009,7 +1022,6 @@ def phase_dense_kernel_parity(corpus, dense):
         rerun["gram"] = max(rerun["gram"], rr)
     # K7
     S = dense["S"]
-    clock = sm_clock_hz()
     top = np.argsort(-np.diagonal(S), kind="stable")
     by_dtype = {}
     for dtype in (torch.float64, torch.float32):
@@ -1095,7 +1107,7 @@ def phase_fit_per_row(record, corpus):
     return counts
 
 
-def phase_dense_timing(corpus, dense):
+def phase_dense_timing(corpus, dense, clock):
     """K5, K6 and K7 at the path's shapes, ms per launch by CUDA events,
     beside the bound (the larger of bytes over 3.35 TB/s and operations
     over 67 TFLOP/s, float32 outside the tensor cores), the plain
@@ -1112,7 +1124,8 @@ def phase_dense_timing(corpus, dense):
     plan, and both its and the library's device time alone
     (``device_ms``: the profiler's kernel time, no host gaps); K7 at n 48
     and 192 on a dense row update (Y = Sigma_hat's top-n block with
-    row/col 0 zeroed, 4 sweeps, float32), no library call."""
+    row/col 0 zeroed, 4 sweeps, float32), no library call, its bound
+    `chain_bound`'s."""
     import numpy as np
     import torch
 
@@ -1122,11 +1135,14 @@ def phase_dense_timing(corpus, dense):
     first = dense["blocks"][0]
     rows = {}
 
-    def row(name, ms, plain, lib, nbytes, ops, flops=H100_F32_FLOPS, **kw):
-        tb, to = nbytes / H100_BYTES_PER_S * 1e3, ops / flops * 1e3
+    def row(name, ms, plain, lib, nbytes, ops, flops=H100_F32_FLOPS,
+            steps=0, **kw):
+        b = chain_bound(nbytes, ops, steps, clock, flops)
         r = {"name": name, "ms": ms, "plain_ms": plain, "library_ms": lib,
-             "bound_ms": max(tb, to),
-             "bound_by": "bytes" if tb >= to else "operations",
+             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+             **({k: b[k] for k in ("bytes_bound_ms", "ops_bound_ms",
+                                   "chain_steps", "chain_bound_ms")}
+                if steps else {}),
              "bytes": nbytes, "ops": ops, **kw}
         emit("dense_timing", **r)
         return r
@@ -1166,7 +1182,6 @@ def phase_dense_timing(corpus, dense):
                   "slab_rows": plan.slab_rows, "ctas": plan.blocks,
                   "smem_bytes": plan.smem_bytes})
     S = dense["S"]
-    clock = sm_clock_hz()
     top = np.argsort(-np.diagonal(S), kind="stable")
     for n in (48, 192):
         idx = np.sort(top[:n])
@@ -1181,9 +1196,7 @@ def phase_dense_timing(corpus, dense):
         ops = 2 * n * n + 4 * (n - 1) * (2 * n + 10) + 2 * n
         rows[f"qp_sweeps_n{n}"] = row(
             f"qp_sweeps_n{n}", ms, plain, None, (n * n + 4 * n + 1) * 4, ops,
-            n=n, sweeps=4, chain_steps=4 * (n - 1),
-            chain_bound_ms=4 * (n - 1) * COORD_STEP_CYCLES / clock * 1e3,
-            library=None, library_device_ms=None,
+            steps=4 * (n - 1), n=n, sweeps=4, library=None, library_device_ms=None,
             device_ms=device_ms(
                 lambda: bcd_sweep.qp_sweep_cuda(Y, s, lam, s, 0, 4)))
     return rows
@@ -1942,6 +1955,7 @@ def main():
                                           "dense_blocks_nytimes.json")))
 
     phase_env()
+    clock = sm_clock_hz()       # the SM clock of the chain bounds (K1, K7)
     # slice (a): the dense fit and K1
     worst, chaotic_dX = phase_kernel_parity()
     corpus, results, fit_counts, shapes = phase_fit(record)
@@ -1952,9 +1966,9 @@ def main():
             "batched": shapes_b["batched"]}).items():
         worst[name] = max(worst[name], err)
     worst["float64"] = max(worst["float64"], phase_large_n(corpus))
-    row = phase_timing(corpus, results)
+    row = phase_timing(corpus, results, clock)
     worst["float32"] = max(worst["float32"], row["max_abs_dX"])
-    shape_rows = phase_fit_shape_timing(corpus, shapes["single"])
+    shape_rows = phase_fit_shape_timing(corpus, shapes["single"], clock)
     phase_profile(corpus)
     # slice (d): the dense row-block pipeline (K5, K6) and the per-row
     # solver (K7), on the dense cell's corpus
@@ -1962,7 +1976,7 @@ def main():
     phase_dense_pass_profile(corpus, dense)
     d_worst, d_rerun, k7_by_dtype = phase_dense_kernel_parity(corpus, dense)
     row_counts = phase_fit_per_row(record, corpus)
-    drow = phase_dense_timing(corpus, dense)
+    drow = phase_dense_timing(corpus, dense, clock)
     dense_counts = dense["counts"]
     del corpus, dense
     # slice (b): the out-of-core fit and K2, K3
@@ -2039,11 +2053,10 @@ def main():
     emit("kernels", table=[
         {**kernels[0], "replaces_also": "src/repro/kernels/bcd_fused.py:197",
          "max_abs_err_by_dtype": worst, "chaotic_case_max_abs_dX": chaotic_dX,
-         "n_hat": row["n_hat"], "chain_steps": row["chain_steps"],
-         "chain_bound_ms": row["chain_bound_ms"],
+         "n_hat": row["n_hat"],
          "fit_shapes": [{k: r[k] for k in (
-             "n_hat", "launch", "ms", "device_ms", "chain_steps",
-             "chain_bound_ms")} for r in shape_rows]},
+             "n_hat", "launch", "ms", "device_ms", "bound_ms", "bound_by")}
+             for r in shape_rows]},
         {**kernels[1], "run_to_run_max_abs_diff": csr_rerun["csr_stats"],
          "library": trow["csr_stats"]["library"]},
         {**kernels[2], "replaces_also": "src/repro/kernels/csr_gram.py:126",
@@ -2067,11 +2080,9 @@ def main():
              *DEVICE_KEYS)}},
         {**kernels[6], "run_to_run_max_abs_diff": d_rerun["qp_sweeps"],
          "max_abs_err_by_dtype": k7_by_dtype, "n": 192,
-         "chain_steps": drow["qp_sweeps_n192"]["chain_steps"],
-         "chain_bound_ms": drow["qp_sweeps_n192"]["chain_bound_ms"],
          "n_48": {k: drow["qp_sweeps_n48"][k] for k in (
              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-             "chain_bound_ms", *DEVICE_KEYS)}}])
+             *DEVICE_KEYS)}}])
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

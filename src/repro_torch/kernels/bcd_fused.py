@@ -3,21 +3,20 @@ and its launch plan.
 
 Port of ``repro.kernels.bcd_fused`` (TPU kernels `_bcd_resident_kernel`
 and `_bcd_tiled_kernel`).  The kernel (``csrc/bcd_fused.cu``) runs every
-sweep of B independent problems in ONE launch, one warp per problem and
-up to `MAX_PROBLEMS_PER_CTA` problems a CTA; see the source for the
-design and what bounds it.  Its plain version is
-`kernels.ref.bcd_solve_masked_ref` / `bcd_solve_batched_ref`.
+sweep of B independent problems in ONE launch, grid = (B,), one CTA per
+problem; see the source for the design and what bounds it.  Its plain
+version is `kernels.ref.bcd_solve_masked_ref` / `bcd_solve_batched_ref`.
 
 Two schemes replace the TPU's VMEM budgets (a TPU core's ~16 MB, which do
 not carry over to a 227 KB block):
 
-* ``smem``   — X lives in the CTA's shared memory for the whole solve,
-  the vectors in registers (``slots`` = n_pad / 32 a lane); chosen when
-  its ``n_pad^2`` words (and a slack row) fit in 227 KB (float32: n_pad
-  <= 224, float64: n_pad <= 160).
-* ``global`` — X is updated in place in the output buffer (L2 / HBM),
-  the vectors, X's diagonal and a ring of the rows the box QP reads next
-  in shared memory (12 n_pad words a problem; 6 where that does not fit).
+* ``smem``   — one warp; X lives in its shared memory for the whole
+  solve, the vectors in registers (``slots`` = n_pad / 32 a lane);
+  chosen when its ``n_pad^2`` words (and a slack row) fit in 227 KB
+  (float32: n_pad <= 224, float64: n_pad <= 160).
+* ``global`` — min(n_pad, 512) threads; X is updated in place in the
+  output buffer (L2 / HBM), the vectors in shared memory (3 n_pad + 16
+  words: float32 n_pad <= 19,360, float64 n_pad <= 9,664).
 
 Problems are zero-padded to a multiple of 32 (a warp), not the TPU's 128
 lanes: the padding is never computed on (every loop stops at n_valid), and
@@ -36,8 +35,8 @@ import torch
 from . import _build
 
 SMEM_LIMIT_BYTES = 232_448        # dynamic shared memory one H100 block may use
-MAX_PROBLEMS_PER_CTA = 4          # one warp each: one per SM sub-partition
-GLOBAL_RINGS = (8, 2)             # rows of X in flight, deepest that fits
+MAX_THREADS = 512                 # ``global``: threads of a CTA
+_RED_SLOTS = MAX_THREADS // 32    # ``global``: one partial sum a warp
 _SCHEME_CODES = {"smem": 0, "global": 1}
 
 launches = 0                      # kernel launches since the last reset
@@ -54,69 +53,52 @@ def pad32(n: int) -> int:
 
 @dataclass(frozen=True)
 class SolvePlan:
-    """How one launch executes a (batch of) whole solve(s) on the card."""
+    """How one launch executes a (batch of) whole solve(s) on the card:
+    one CTA a problem."""
 
-    scheme: str             # 'smem' | 'global'
-    n_pad: int              # problem size padded to a multiple of 32
-    slots: int              # n_pad / 32: the vector slots each lane owns
-    problems_per_cta: int   # problems a CTA solves, one warp each
-    threads: int            # CTA size: 32 x problems_per_cta
-    ctas: int               # CTAs of the launch: ceil(batch / problems_per_cta)
-    smem_bytes: int         # dynamic shared memory of one CTA
-    ring: int               # global: rows of X in flight to the box QP
+    scheme: str         # 'smem' | 'global'
+    n_pad: int          # problem size padded to a multiple of 32
+    slots: int          # smem: n_pad / 32, the vector slots each lane owns
+    threads: int        # CTA size: one warp (smem), min(n_pad, 512) (global)
+    smem_bytes: int     # dynamic shared memory of one CTA
 
 
-def ring_rows(n_pad: int, itemsize: int) -> int:
-    """Rows of X the ``global`` scheme keeps in flight: the deepest of
-    `GLOBAL_RINGS` whose ring fits beside the vectors (the shallowest if
-    none does, and then the plan refuses the size)."""
-    for rows in GLOBAL_RINGS:
-        if (4 + rows) * n_pad * itemsize <= SMEM_LIMIT_BYTES:
-            return rows
-    return GLOBAL_RINGS[-1]
-
-
-def problem_smem_bytes(scheme: str, n_pad: int, itemsize: int) -> int:
-    """Shared memory one problem takes: X and a slack of n_pad + 32 words
-    that the box QP's look-ahead reads past the last row (``smem``), or
-    w, u, s, X's diagonal and a ring of `ring_rows` rows of X
-    (``global``)."""
+def smem_bytes(scheme: str, n_pad: int, itemsize: int) -> int:
+    """Shared memory of one CTA: X and a slack of n_pad + 32 words that
+    the box QP's look-ahead reads past the last row (``smem``), or u, w, s
+    and a partial sum a warp (``global``)."""
     words = (n_pad * n_pad + n_pad + 32 if scheme == "smem"
-             else (4 + ring_rows(n_pad, itemsize)) * n_pad)
+             else 3 * n_pad + _RED_SLOTS)
     return words * itemsize
 
 
-def plan_fused_solve(n: int, itemsize: int = 4, scheme: str = "auto",
-                     batch: int = 1) -> SolvePlan:
-    """The launch plan for ``batch`` problems at reduced size ``n``:
-    ``smem`` when one problem's X fits a block's shared memory, else
-    ``global``; a forced ``scheme`` is taken as given (``smem`` raises if
-    it does not fit).  A CTA takes as many of the batch's problems as fit
-    its shared memory, at most `MAX_PROBLEMS_PER_CTA`."""
+def plan_fused_solve(n: int, itemsize: int = 4,
+                     scheme: str = "auto") -> SolvePlan:
+    """The launch plan at reduced size ``n``: ``smem`` when X fits a
+    block's shared memory, else ``global``; a forced ``scheme`` is taken
+    as given (it raises if it does not fit).  The batch size does not
+    enter: each problem has its own CTA."""
     n_pad = pad32(n)
-    if batch < 1:
-        raise ValueError(f"batch must be >= 1, got {batch}")
     if scheme == "auto":
-        scheme = ("smem" if problem_smem_bytes("smem", n_pad, itemsize)
+        scheme = ("smem" if smem_bytes("smem", n_pad, itemsize)
                   <= SMEM_LIMIT_BYTES else "global")
     if scheme not in _SCHEME_CODES:
         raise ValueError(f"unknown scheme {scheme!r} (auto | smem | global)")
-    one = problem_smem_bytes(scheme, n_pad, itemsize)
-    if one > SMEM_LIMIT_BYTES:
+    need = smem_bytes(scheme, n_pad, itemsize)
+    if need > SMEM_LIMIT_BYTES:
         raise ValueError(
-            f"scheme {scheme!r} needs {one} B of shared memory at "
+            f"scheme {scheme!r} needs {need} B of shared memory at "
             f"n_pad={n_pad}, over the {SMEM_LIMIT_BYTES} B a block may use")
-    per_cta = min(batch, MAX_PROBLEMS_PER_CTA, SMEM_LIMIT_BYTES // one)
-    return SolvePlan(scheme, n_pad, n_pad // 32, per_cta, 32 * per_cta,
-                     -(-batch // per_cta), one * per_cta,
-                     ring_rows(n_pad, itemsize) if scheme == "global" else 0)
+    if scheme == "smem":
+        return SolvePlan(scheme, n_pad, n_pad // 32, 32, need)
+    return SolvePlan(scheme, n_pad, 0, min(n_pad, MAX_THREADS), need)
 
 
 def _library():
     lib = _build.load("bcd_fused")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.bcd_fused_launch.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.bcd_fused_launch.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.bcd_fused_launch.restype = i
         lib.bcd_fused_divide.argtypes = [p, p, p, ctypes.c_longlong, p]
         lib.bcd_fused_divide.restype = i
@@ -151,9 +133,8 @@ def launch(Sigma3, X03, scal, *, plan: SolvePlan, max_sweeps: int,
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"bcd_fused: {name} must be contiguous {shape}, "
                              f"got {tuple(t.shape)}")
-    if n_pad != plan.n_pad or -(-B // plan.problems_per_cta) != plan.ctas:
-        raise ValueError(f"bcd_fused: (B, n_pad) ({B}, {n_pad}) is not the "
-                         f"plan's {plan}")
+    if n_pad != plan.n_pad:
+        raise ValueError(f"bcd_fused: n_pad {n_pad} != plan {plan.n_pad}")
     if min(max_sweeps, qp_sweeps, tau_iters) < 0:
         raise ValueError("bcd_fused: sweep and iteration counts must be >= 0")
     lib = _library()
@@ -166,8 +147,7 @@ def launch(Sigma3, X03, scal, *, plan: SolvePlan, max_sweeps: int,
             Sigma3.element_size(), _SCHEME_CODES[plan.scheme],
             Sigma3.data_ptr(), X03.data_ptr(), scal.data_ptr(),
             X.data_ptr(), hist.data_ptr(), meta.data_ptr(),
-            B, n_pad, max_sweeps, qp_sweeps, tau_iters, plan.problems_per_cta,
-            plan.ring, stream,
+            B, n_pad, max_sweeps, qp_sweeps, tau_iters, plan.threads, stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -217,7 +197,7 @@ def bcd_solve_batched_cuda(Sigmas, lams, betas, X0s, tol, n_valids, *,
     history (B, max_sweeps))``; ``obj`` is the barrier-free F at exit."""
     B, n, _ = Sigmas.shape
     dtype, dev = Sigmas.dtype, Sigmas.device
-    plan = plan_fused_solve(n, Sigmas.element_size(), scheme, B)
+    plan = plan_fused_solve(n, Sigmas.element_size(), scheme)
     Sigma3, X03 = _pad_stack(Sigmas, X0s.to(dtype), plan.n_pad)
     scal = torch.stack([
         torch.as_tensor(lams, dtype=dtype, device=dev).reshape(-1).expand(B),

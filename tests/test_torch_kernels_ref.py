@@ -131,42 +131,48 @@ def test_float32_oracle_stays_float32():
     (160, 8, "smem"), (161, 8, "global"),
 ])
 def test_plan_fused_solve_schemes(n, itemsize, scheme):
-    """One warp per problem: a lone solve is one CTA of one warp; X's
-    n_pad^2 words and a slack row in shared memory (``smem``) or 4 n_pad
-    words of vectors (``global``)."""
+    """One CTA a problem: one warp with X's n_pad^2 words and a slack row
+    in shared memory (``smem``), or min(n_pad, 512) threads with 3 n_pad
+    words of vectors and a partial sum a warp (``global``)."""
     plan = ops.plan_fused_solve(n, itemsize)
     assert plan.scheme == scheme
     assert plan.n_pad % 32 == 0 and plan.n_pad >= n
-    assert plan.slots == plan.n_pad // 32
-    assert (plan.problems_per_cta, plan.threads, plan.ctas) == (1, 32, 1)
-    words = (plan.n_pad ** 2 + plan.n_pad + 32 if scheme == "smem"
-             else (4 + plan.ring) * plan.n_pad)
-    assert plan.ring == (0 if scheme == "smem" else 8)
-    assert plan.smem_bytes == words * itemsize <= bcd_fused.SMEM_LIMIT_BYTES
     if scheme == "smem":       # the kernel's register slots: 1-7 f32, 1-5 f64
+        assert plan.slots == plan.n_pad // 32
         assert 1 <= plan.slots <= (7 if itemsize == 4 else 5)
+        assert plan.threads == 32
+        words = plan.n_pad ** 2 + plan.n_pad + 32
+    else:
+        assert plan.slots == 0
+        assert plan.threads == min(plan.n_pad, 512)
+        words = 3 * plan.n_pad + 16
+    assert plan.smem_bytes == words * itemsize <= bcd_fused.SMEM_LIMIT_BYTES
     assert ops.plan_fused_solve(n, itemsize, scheme="global").scheme == "global"
 
 
-@pytest.mark.parametrize("n,itemsize,batch,per_cta,ctas", [
-    (40, 4, 4, 4, 1),       # the batched fit's shape: one CTA, four warps
-    (60, 4, 9, 4, 3),       # a ragged last CTA (one problem of four)
-    (224, 4, 4, 1, 4),      # one X of 200 KB fills a CTA's shared memory
-    (128, 4, 4, 3, 2),      # three 65 KB X a CTA
-    (160, 8, 2, 1, 2),
-    (1000, 4, 4, 4, 1),     # global: 48 KB of vectors and rows a problem
-    (2000, 8, 8, 1, 8),     # global: 192 KB a problem
-    (4000, 8, 2, 1, 2),     # global: 8 rows do not fit, 2 do (192 KB)
+@pytest.mark.parametrize("n,itemsize,scheme,threads", [
+    (1, 4, "smem", 32),         # the smallest problem: one slot
+    (33, 4, "smem", 32),        # two slots, a ragged second
+    (192, 4, "smem", 32),       # the dense fit's largest n_hat
+    (500, 4, "global", 512),    # NYTimes' largest reduced size
+    (1000, 8, "global", 512),   # PubMed's, float64: 512 threads own 1024
+    (19_360, 4, "global", 512),   # the largest global float32 size
+    (9_664, 8, "global", 512),    # the largest global float64 size
+    (19_361, 4, None, None),      # beyond: refused
 ])
-def test_plan_fused_solve_shares_ctas_by_shared_memory(n, itemsize, batch,
-                                                      per_cta, ctas):
-    plan = ops.plan_fused_solve(n, itemsize, batch=batch)
-    assert (plan.problems_per_cta, plan.ctas) == (per_cta, ctas)
-    assert plan.threads == 32 * per_cta
-    assert plan.smem_bytes == per_cta * bcd_fused.problem_smem_bytes(
-        plan.scheme, plan.n_pad, itemsize) <= bcd_fused.SMEM_LIMIT_BYTES
-    with pytest.raises(ValueError, match="batch"):
-        ops.plan_fused_solve(n, itemsize, batch=0)
+def test_plan_fused_solve_sizes_one_cta_a_problem(n, itemsize, scheme,
+                                                  threads):
+    """The plan has no batch: every problem of a launch is its own CTA
+    (grid = (B,)), and ``global`` holds only vectors in shared memory, so
+    it runs to n_pad 19,360 (float32) and 9,664 (float64)."""
+    if scheme is None:
+        with pytest.raises(ValueError, match="shared memory"):
+            ops.plan_fused_solve(n, itemsize)
+        return
+    plan = ops.plan_fused_solve(n, itemsize)
+    assert (plan.scheme, plan.threads) == (scheme, threads)
+    assert plan.smem_bytes == bcd_fused.smem_bytes(
+        scheme, plan.n_pad, itemsize) <= bcd_fused.SMEM_LIMIT_BYTES
 
 
 def test_plan_refuses_smem_that_does_not_fit():

@@ -246,16 +246,13 @@ def test_warp_kernel_at_lane_edges_on_card(cuda, dtype, n_valid):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("scheme", ["smem", "global"])
-def test_batch_sharing_a_cta_and_no_bisection_on_card(cuda, dtype, scheme):
-    """Nine problems of mixed n_valid, four warps a CTA (the last CTA has
-    one), against the plain version; then ``tau_iters`` 0 (tau the
-    bracket's midpoint) on the same batch."""
-    from repro_torch.kernels import bcd_fused
+def test_mixed_batch_and_no_bisection_on_card(cuda, dtype, scheme):
+    """Nine problems of mixed n_valid in one launch (a CTA each), against
+    the plain version; then ``tau_iters`` 0 (tau the bracket's midpoint)
+    on the same batch."""
     from repro_torch.testing import covariance_problems
 
     sizes = [60, 33, 1, 47, 64, 32, 2, 59, 17]
-    plan = bcd_fused.plan_fused_solve(64, dtype.itemsize, scheme, len(sizes))
-    assert (plan.problems_per_cta, plan.ctas) == (4, 3)
     S, X0, lams, betas = covariance_problems(
         np.random.default_rng(7), sizes, 64,
         np.float32 if dtype == torch.float32 else np.float64)
