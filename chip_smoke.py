@@ -25,9 +25,12 @@ words, 5 components, target cardinality 5):
   Gram on the 500-word support) and the fit on its Sigma_hat, against
   ``dense_blocks_nytimes.json`` and exact float64 statistics; and the
   dense fit on the legacy per-row solver (``qp_impl='pallas'``: one K7
-  launch a row update) against ``spca_run_nytimes.json``; K5, K6 and K7
-  are held to their plain versions on the path's blocks and Sigma_hat
-  and timed at its shapes beside their bounds;
+  launch a row update) against ``spca_run_nytimes.json``, then again
+  under the profiler for K7's device time; K5, K6 and K7 are held to
+  their plain versions on the path's blocks and Sigma_hat (K7's one-warp
+  scheme also to its block-wide one, bit for bit) and timed at its
+  shapes beside their bounds, K7 at every n_hat the per-row fit
+  launched it at;
 * the out-of-core fit (``--streaming``) at the paper's 300,000 docs,
   from a CSR store in a temporary directory (removed at the end),
   against ``spca_run_nytimes_streaming.json``; K2 and K3 are held to
@@ -38,8 +41,8 @@ words, 5 components, target cardinality 5):
   queries in batches of 64 (one K4 launch each) and both drift streams,
   against ``serve_topics_nytimes.json``; K4 is held to its plain version
   and to the record's reference scores, timed at B 64 and 512 beside its
-  bound and ``X @ W``, and a batch's time is split between its host and
-  device parts.
+  bound, ``X @ W`` and a one-element launch's device time, and a batch's
+  time is split between its host and device parts.
 
 Each phase prints one JSON line; a failed check raises, so the script
 exits non-zero.  The last lines are the kernel table, the card's name
@@ -159,12 +162,17 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def device_ms(fn, reps=20):
-    """Device time of one ``fn()`` call: the CUDA kernels that the
-    profiler traces in ``reps`` calls, summed, over ``reps``; None where
-    three sessions record no device time.  Unlike `cuda_ms` it leaves out
-    the host's time between launches, which bounds a short kernel's
-    back-to-back rate on this host."""
+def device_ms(fn, reps=20, kernel=None):
+    """Device time of one ``fn()`` call: for each CUDA kernel the profiler
+    traces in ``reps`` calls (only those whose name holds ``kernel``, if
+    given), its mean time times the launches it makes a call (its records
+    over ``reps``, rounded up), summed; None where three sessions record
+    no device time.  The mean, not the sum over ``reps``: on the H100 a
+    session now and then drops some of its kernels' records (13 of 20
+    kept in one; 8,306 of 8,320 in another), while the times it keeps
+    agree to ~1 %.  Unlike `cuda_ms` it leaves out the host's time
+    between launches, which bounds a short kernel's back-to-back rate on
+    this host."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -175,11 +183,14 @@ def device_ms(fn, reps=20):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(getattr(e, "self_device_time_total", 0)
-                 or getattr(e, "self_cuda_time_total", 0)
-                 for e in prof.key_averages())
+        us = 0.0
+        for e in prof.key_averages():
+            t = (getattr(e, "self_device_time_total", 0)
+                 or getattr(e, "self_cuda_time_total", 0))
+            if t and e.count and (kernel is None or kernel in e.key):
+                us += t / e.count * -(-e.count // reps)
         if us:
-            return us / reps / 1e3
+            return us / 1e3
     return None
 
 
@@ -206,7 +217,8 @@ def phase_env():
         log = os.path.join(_build.BUILD_DIR, f"{name}.log")
         if os.path.exists(log):
             ptxas[name] = [ln.strip() for ln in open(log)
-                           if "registers" in ln or "spill" in ln]
+                           if "registers" in ln or "spill" in ln
+                           or "Compiling entry" in ln]
     emit("env", nvidia_smi=nvidia_smi(), torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          build_s=round(wall, 3), built=built, ptxas=ptxas)
@@ -941,11 +953,13 @@ def phase_dense_kernel_parity(corpus, dense):
     dense symmetric Y; j first, middle, last; 4 sweeps), each output (u,
     w, R2) against its own largest |value|: float64 to 1e-12, float32 to
     1e-4 (w = Y u0 and R2 are reduced in another order, ~n u relative,
-    and the clipped steps carry it)."""
+    and the clipped steps carry it); where the one-warp scheme runs (n <=
+    224 float32, 160 float64), its w and R2 are also held bit for bit to
+    the block-wide scheme's, which reduces in the same order."""
     import numpy as np
     import torch
 
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import bcd_sweep, ops
 
     dev = torch.device("cuda")
     first, last = dense["blocks"]
@@ -1047,10 +1061,18 @@ def phase_dense_kernel_parity(corpus, dense):
                     # each output against its own scale: max|u|, max|w|, |R2|
                     per = {k: (_max_abs_diff([g], [w]), float(w.abs().max()))
                            for k, g, w in zip(("u", "w", "R2"), got, want)}
-                    ok = rr == 0.0 and all(d <= rtol * sc
-                                           for d, sc in per.values())
+                    scheme = bcd_sweep.plan_qp_sweep(n, Y.element_size()).scheme
+                    same = None
+                    if scheme == "warp":
+                        block = bcd_sweep.qp_sweep_cuda(Y, s, lam, s, j, 4,
+                                                        "block")
+                        same = (torch.equal(got[1], block[1])
+                                and torch.equal(got[2], block[2]))
+                    ok = rr == 0.0 and same is not False and all(
+                        d <= rtol * sc for d, sc in per.values())
                     emit("dense_kernel_parity", kernel="qp_sweeps",
-                         dtype=name, n=n, Y=xname, j=j, max_abs_diff=diff,
+                         dtype=name, n=n, Y=xname, j=j, scheme=scheme,
+                         w_R2_bits_equal_block_scheme=same, max_abs_diff=diff,
                          max_abs_diff_by_output={k: d for k, (d, _)
                                                  in per.items()},
                          max_abs_value_by_output={k: sc for k, (_, sc)
@@ -1075,7 +1097,8 @@ def phase_fit_per_row(record, corpus):
     launch a row update, so ``kernel.launches.qp_sweeps`` = K7's count =
     sum over solves of sweeps x n_hat (each eval's n_hat from its
     ``solver.eval`` span, its sweeps from the ``solver.sweeps``
-    histogram), and no K1 launch."""
+    histogram), and no K1 launch.  Returns the counts and the n_hat the
+    fit launched K7 at."""
     from repro_torch.kernels import bcd_fused, bcd_sweep
     from repro_torch.obs import metrics, trace
 
@@ -1104,10 +1127,34 @@ def phase_fit_per_row(record, corpus):
     check(counts["qp_sweeps"] == counts["kernel.launches.qp_sweeps"]
           == expected > 0, "K7 launches != sum of sweeps x n_hat")
     check(counts["bcd_fused"] == 0, "the per-row fit launched K1")
-    return counts
+    return counts, sorted(set(sizes))
 
 
-def phase_dense_timing(corpus, dense, clock):
+def phase_per_row_profile(corpus):
+    """The per-row fit of `phase_fit_per_row` again, under torch.profiler
+    (device activity only): K7's device time summed over its launches,
+    the device's busy share of the run's wall time, the largest device
+    events.  Run last, after every `device_ms`: on the H100, the profiler
+    sessions that followed this one (~10^5 device events) in the same
+    process dropped records of their kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _fit_direct(corpus, "jnp", qp_impl="pallas")
+        wall = time.perf_counter() - t0
+    kernels = _device_events(prof)
+    busy_ms = sum(k[0] for k in kernels)
+    k7 = [k for k in kernels if "qp_sweep" in k[2]]
+    emit("per_row_profile", seconds=wall, device_busy_ms=busy_ms,
+         device_busy_share=busy_ms / 1e3 / wall,
+         k7_device_ms=sum(k[0] for k in k7),
+         k7_launches=sum(k[1] for k in k7),
+         top=[{"ms": ms, "count": c, "name": name}
+              for ms, c, name in kernels[:6]])
+
+
+def phase_dense_timing(corpus, dense, clock, qp_sizes):
     """K5, K6 and K7 at the path's shapes, ms per launch by CUDA events,
     beside the bound (the larger of bytes over 3.35 TB/s and operations
     over 67 TFLOP/s, float32 outside the tensor cores), the plain
@@ -1122,10 +1169,11 @@ def phase_dense_timing(corpus, dense, clock):
     ``tc_bound_ms``, the bound of K6's own arithmetic; beside them
     ``cuda_core_bound_ms`` (those operations over 67 TFLOP/s), its launch
     plan, and both its and the library's device time alone
-    (``device_ms``: the profiler's kernel time, no host gaps); K7 at n 48
-    and 192 on a dense row update (Y = Sigma_hat's top-n block with
+    (``device_ms``: the profiler's kernel time, no host gaps); K7 at every
+    n in ``qp_sizes`` (the n_hat the per-row fit launched it at) and at 48
+    and 192, on a dense row update (Y = Sigma_hat's top-n block with
     row/col 0 zeroed, 4 sweeps, float32), no library call, its bound
-    `chain_bound`'s."""
+    `chain_bound`'s (the chain: 4 (n - 1) coordinate steps)."""
     import numpy as np
     import torch
 
@@ -1183,7 +1231,7 @@ def phase_dense_timing(corpus, dense, clock):
                   "smem_bytes": plan.smem_bytes})
     S = dense["S"]
     top = np.argsort(-np.diagonal(S), kind="stable")
-    for n in (48, 192):
+    for n in sorted(set(qp_sizes) | {48, 192}):
         idx = np.sort(top[:n])
         Y = torch.tensor(S[np.ix_(idx, idx)], dtype=torch.float32, device=dev)
         s = Y[:, 0].clone()
@@ -1197,7 +1245,7 @@ def phase_dense_timing(corpus, dense, clock):
         rows[f"qp_sweeps_n{n}"] = row(
             f"qp_sweeps_n{n}", ms, plain, None, (n * n + 4 * n + 1) * 4, ops,
             steps=4 * (n - 1), n=n, sweeps=4, library=None, library_device_ms=None,
-            device_ms=device_ms(
+            scheme=bcd_sweep.plan_qp_sweep(n).scheme, device_ms=device_ms(
                 lambda: bcd_sweep.qp_sweep_cuda(Y, s, lam, s, 0, 4)))
     return rows
 
@@ -1813,7 +1861,10 @@ def phase_project_timing(record, queries):
     one library call that computes the same function; it reads the whole
     batch), and the bound: the larger of the bytes the function needs (the
     B x live-word values of X it gathers, the pack, the output) over 3.35
-    TB/s and its 2 multiply-adds per live slot over 67 TFLOP/s."""
+    TB/s and its 2 multiply-adds per live slot over 67 TFLOP/s.  Beside
+    them, on the same clock (`device_ms`), the launch floor: the device
+    time of a one-element elementwise kernel (``x.add_(1)``), the least
+    any launch takes; a note, not part of the bound."""
     import numpy as np
     import torch
 
@@ -1832,6 +1883,8 @@ def phase_project_timing(record, queries):
     words = np.unique(sidx[live]).size
     sd, vd, Wd = (torch.from_numpy(a).to(dev) for a in (sidx, vals, W))
     rows = _dense_rows(serve_topics.iter_docs(queries), 512, n)
+    one = torch.zeros(1, device=dev)
+    floor = device_ms(lambda: one.add_(1))
     out = {}
     for B in (64, 512):
         X = torch.from_numpy(rows[:B].copy()).to(dev)
@@ -1848,7 +1901,7 @@ def phase_project_timing(record, queries):
                "ms": ms, "plain_ms": plain, "library_ms": lib,
                "library": "X @ W, W dense (n, k) float32, TF32 off",
                "device_ms": dev_ms, "library_device_ms": lib_dev,
-               "bound_ms": max(tb, to),
+               "launch_floor_device_ms": floor, "bound_ms": max(tb, to),
                "bound_by": "bytes" if tb >= to else "operations",
                "bytes": nbytes, "ops": ops, "live_slots": int(live.sum()),
                "dense_batch_bytes": B * n * 4}
@@ -1975,10 +2028,10 @@ def main():
     dense = phase_dense_blocks(drecord, corpus)
     phase_dense_pass_profile(corpus, dense)
     d_worst, d_rerun, k7_by_dtype = phase_dense_kernel_parity(corpus, dense)
-    row_counts = phase_fit_per_row(record, corpus)
-    drow = phase_dense_timing(corpus, dense, clock)
+    row_counts, qp_sizes = phase_fit_per_row(record, corpus)
+    drow = phase_dense_timing(corpus, dense, clock, qp_sizes)
     dense_counts = dense["counts"]
-    del corpus, dense
+    del dense
     # slice (b): the out-of-core fit and K2, K3
     import numpy as np
 
@@ -2003,6 +2056,8 @@ def main():
     p_worst, p_rerun = phase_project_parity(vrecord, served["queries"])
     prow = phase_project_timing(vrecord, served["queries"])
     phase_serve_split(served["version"], served["queries"])
+    phase_per_row_profile(corpus)
+    del corpus
     kernels = [{
         "name": "bcd_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bcd_fused.cu",
@@ -2067,6 +2122,7 @@ def main():
              *DEVICE_KEYS)}},
         {**kernels[3], "run_to_run_max_abs_diff": p_rerun,
          "library": p64["library"],
+         "launch_floor_device_ms": p64["launch_floor_device_ms"],
          "batch_512": {k: prow[512][k] for k in (
              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
              *DEVICE_KEYS)}},
@@ -2080,9 +2136,10 @@ def main():
              *DEVICE_KEYS)}},
         {**kernels[6], "run_to_run_max_abs_diff": d_rerun["qp_sweeps"],
          "max_abs_err_by_dtype": k7_by_dtype, "n": 192,
-         "n_48": {k: drow["qp_sweeps_n48"][k] for k in (
-             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-             *DEVICE_KEYS)}}])
+         "scheme": drow["qp_sweeps_n192"]["scheme"],
+         "per_row_n_hat": [{k: drow[f"qp_sweeps_n{n}"][k] for k in (
+             "n", "ms", "device_ms", "bound_ms")}
+             for n in sorted(set(qp_sizes) | {48, 192})]}])
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -6,21 +6,27 @@
 On one card, the dense cell's fit on the legacy per-row solver
 (``solver_impl='jnp', qp_impl='pallas'``: 30,000 docs at NYTimes width,
 5 components, target cardinality 5, as ``chip_smoke.py``'s
-``fit_per_row`` phase runs it) twice, on the same corpus:
+``fit_per_row`` phase runs it) four times, on the same corpus:
 
 * ``k7``: the box QP of every row update is one launch of kernel K7;
 * ``plain``: the box QP is K7's plain PyTorch version on the same card
   (``ops.qp_sweeps(..., impl='ref')``: ``w = Y u0`` by cuBLAS, the
   coordinate steps elementwise, ``R2`` by ``torch.dot``); the rest of
-  the solver (traces, the tau bisection, the X update) is the same code.
+  the solver (traces, the tau bisection, the X update) is the same code;
+* ``plain_w0_k7_order``: the plain version with ``w = Y u0`` summed as
+  K7 sums it, over q in index order (one multiply and one add a q,
+  each rounded), everything else as ``plain``;
+* ``plain_r2_k7_order``: the plain version with ``R2`` summed as K7
+  sums it: a shuffle-down tree over each 32 indices, then the trees'
+  totals in index order.
 
 Each prints its components' supports and lambdas beside the reference
 record (``src/repro_torch/data/reference/spca_run_nytimes.json``), and
 the last line names, for each component whose lambdas differ between
-the two runs, the run that keeps the record's lambda.  It fails if K7
-was not launched in the ``k7`` run, or was launched in the ``plain``
-run.  About five minutes on an H100, most of it the plain run's
-per-coordinate host round-trips.
+the ``k7`` and ``plain`` runs, the run that keeps the record's lambda,
+and each run's lambdas.  It fails if K7 was not launched in the ``k7``
+run, or was launched in another.  About ten minutes on an H100, most of
+it the plain runs' per-coordinate host round-trips.
 """
 import functools
 import json
@@ -53,6 +59,48 @@ def _run(label, corpus, record):
     return out
 
 
+def _plain_qp(order):
+    """K7's plain version with one of its reductions in K7's order:
+    ``'w0'`` (w = Y u0 over q in index order) or ``'r2'`` (R2 by 32-wide
+    shuffle-down trees, then their totals in index order)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref as kref
+
+    def qp(Y, s, lam, u0, j, *, sweeps=4, impl="auto"):
+        ft = kref.np_scalar(Y.dtype)
+        n = Y.shape[0]
+        if order == "w0":
+            w = torch.zeros_like(u0)
+            for q in range(n):
+                w = w + Y[q] * u0[q]
+        else:
+            w = Y @ u0
+        u = [ft(x) for x in u0.tolist()]
+        s_l = [ft(x) for x in s.tolist()]
+        diag = [ft(x) for x in Y.diagonal().tolist()]
+        with np.errstate(over="ignore", invalid="ignore", divide="ignore"):
+            kref._coordinate_sweeps(Y, w, None, None, u, s_l, diag, ft(lam),
+                                    int(j), sweeps, n, ft)
+        u_t = torch.tensor([float(x) for x in u], dtype=Y.dtype,
+                           device=Y.device)
+        if order == "r2":
+            v = torch.zeros(-(-n // 32) * 32, dtype=Y.dtype, device=Y.device)
+            v[:n] = u_t * w + 0.0
+            v = v.view(-1, 32)
+            for off in (16, 8, 4, 2, 1):
+                v = v[:, :off] + v[:, off:2 * off]
+            R2 = ft(0)
+            for t in v[:, 0].tolist():
+                R2 = R2 + ft(t)
+        else:
+            R2 = ft(torch.dot(u_t, w).item())
+        return u_t, w, torch.tensor(float(R2), dtype=Y.dtype,
+                                    device=Y.device)
+    return qp
+
+
 def main():
     import torch
 
@@ -78,8 +126,14 @@ def main():
     plain_qp = functools.partial(ops.qp_sweeps, impl="ref")
     with mock.patch.object(ops, "qp_sweeps", plain_qp):
         plain = _run("plain", corpus, record)
+    variants = []
+    for order in ("w0", "r2"):
+        with mock.patch.object(ops, "qp_sweeps", _plain_qp(order)):
+            variants.append(_run(f"plain_{order}_k7_order", corpus, record))
     chip_smoke.check(k7["k7_launches"] > 0, "the k7 run launched no K7")
-    chip_smoke.check(plain["k7_launches"] == 0, "the plain run launched K7")
+    for r in (plain, *variants):
+        chip_smoke.check(r["k7_launches"] == 0, f"the {r['run']} run "
+                         "launched K7")
     moved = []
     for k, (a, b) in enumerate(zip(k7["components"], plain["components"])):
         if a["lam"][0] != b["lam"][0]:
@@ -89,11 +143,15 @@ def main():
                           "lam_plain": b["lam"][0],
                           "lam_record": a["lam"][1],
                           "keeps_record_lam": keeps})
+    runs = (k7, plain, *variants)
     chip_smoke.emit("per_row_witness", summary=True, differs=moved,
+                    lams={r["run"]: [c["lam"][0] for c in r["components"]]
+                          for r in runs},
+                    record_lams=[c["lam"][1] for c in k7["components"]],
                     supports_equal_record={
                         r["run"]: all(c["support_equal"]
                                       for c in r["components"])
-                        for r in (k7, plain)})
+                        for r in runs})
     return 0
 
 

@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of the port's kernels goes, phase by phase, on one card.
 
-    python3 scripts/phase_trace.py [k1] [k2] [k3] [k6]    (default: all)
+    python3 scripts/phase_trace.py [k1] [k2] [k3] [k6] [k7]    (default: all)
 
 ``ncu`` and ``nsys`` do not run where the card is, so this builds
 instrumented copies of the kernels' sources (into
 ``src/repro_torch/kernels/build/trace/``; the package's own libraries are
 not touched) that define their phase marks: ``GRAM_TRACE`` in K3 and K6
-(``csrc/gram_tc.cuh``), ``PHASE_*`` in K1 and K2
+(``csrc/gram_tc.cuh``), ``PHASE_*`` in K1, K2 and K7
 (``csrc/phase_trace.cuh``).  One thread of every unit (a CTA; in K1 a
 problem) records the SM clock and the global timer.  Each kernel runs a
 few times on the same inputs and the last launch's records are read back.
@@ -37,11 +37,23 @@ Times are in microseconds, SM clock cycles at the card's maximum clock.
   over the solve in ``qp`` (the box
   QP's coordinate chain), ``tau`` (R2 and the bisection), ``matvec`` (w0
   = Y s), ``objective`` (F each sweep) and ``row_rest`` (trace, c, s and
-  the write-back), and the bisection steps taken per row update.
+  the write-back), the bisection steps taken per row update, and the QP's
+  ns a coordinate step (``qp`` over sweeps x n x 4 x (n - 1) steps).
+* K7 ``bcd_sweep`` (one warp, ``warp`` scheme) on a row update of the
+  same Sigma_hat at n 48 and 192 (row and column 0 zeroed, s its column
+  0, lam a quarter of max |s|, float32, 4 sweeps, as ``chip_smoke.py``
+  ``dense_timing`` runs it): ``issue`` (the mbarrier set, Y's bulk copy
+  issued, u0, s and Y's unaligned edges loaded), ``copy_wait`` (waiting
+  for Y's copy to land), ``matvec`` (w0 = Y u0, row j of the copy
+  zeroed),
+  ``qp`` (the coordinate chain; its ns a step over 4 x (n - 1) steps,
+  beside K1's at the same n when both are traced), ``r2_write`` (R2
+  and the outputs written), and the launch's span on the SM clock.
 
 Each instrumented kernel's result is held to the package's kernel or its
-plain version (exact where the inputs are counts); the script fails if
-one disagrees.  Measured on the card, not in the package: the clock reads
+plain version (exact where the inputs are counts; K7's ``warp`` scheme to
+its ``block`` scheme, bit for bit on w and R2); the script fails if one
+disagrees.  Measured on the card, not in the package: the clock reads
 and the records' stores are added to every unit.
 """
 import dataclasses
@@ -121,8 +133,12 @@ K1_PHASES = (("qp", 2), ("tau", 3), ("matvec", 4), ("objective", 5),
              ("row_rest", 6))
 K1_TAU_STEPS = 7                  # K1's column counting bisection steps
 K1_END = 8                        # K1's end of the solve (since its start)
+K7_PHASES = (("issue", 2), ("copy_wait", 3), ("matvec", 4), ("qp", 5),
+             ("r2_write", 6))
+K7_END = 8                        # K7's end of the launch (since its start)
 SOURCES = {"k1": "bcd_fused", "k2": "csr_stats", "k3": "csr_gram",
-           "k6": "gram"}
+           "k6": "gram", "k7": "bcd_sweep"}
+QP_SIZES = (48, 192)              # n of K1's and K7's traced problems
 
 
 def build(names):
@@ -307,7 +323,8 @@ def trace_k1(libs, clock_hz, dev, emit, corpus):
     _through_wrapper("bcd_fused", libs["bcd_fused"])
     var, build_S = dense_stats(corpus, dev)
     order = np.argsort(-var, kind="stable")
-    for n, sweeps in ((48, 8), (48, 1), (192, 8), (192, 1), (500, 1)):
+    a, b = QP_SIZES
+    for n, sweeps in ((a, 8), (a, 1), (b, 8), (b, 1), (500, 1)):
         S = build_S(np.sort(order[:n]))
         lam, beta = float(var[order[n]]), default_beta(S)
         X0 = torch.eye(n, device=dev)
@@ -326,6 +343,46 @@ def trace_k1(libs, clock_hz, dev, emit, corpus):
         for name, col in K1_PHASES:
             row[f"{name}_us"] = round(float(t[col]) / clock_hz * 1e6, 2)
         row["tau_steps_per_row"] = float(t[K1_TAU_STEPS]) / (n * sweeps)
+        row["qp_ns_per_step"] = row["qp_us"] * 1e3 / (sweeps * n * 4
+                                                      * (n - 1))
+        emit(row)
+
+
+def trace_k7(libs, clock_hz, dev, emit, corpus):
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import bcd_sweep
+    from repro_torch.launch.spca_run import dense_stats
+
+    _through_wrapper("bcd_sweep", libs["bcd_sweep"])
+    var, build_S = dense_stats(corpus, dev)
+    order = np.argsort(-var, kind="stable")
+    for n in QP_SIZES:
+        Y = build_S(np.sort(order[:n])).float().contiguous()
+        s = Y[:, 0].clone()
+        Y[0, :] = 0
+        Y[:, 0] = 0
+        s[0] = 0
+        lam = 0.25 * float(s.abs().max())
+        out = []
+
+        def launch():
+            out[:] = bcd_sweep.qp_sweep_cuda(Y, s, lam, s, 0, 4)
+            return 0
+        t = records(libs["bcd_sweep"], launch, 1)[0]
+        block = bcd_sweep.qp_sweep_cuda(Y, s, lam, s, 0, 4, "block")
+        if not (torch.equal(out[1], block[1]) and torch.equal(out[2],
+                                                              block[2])):
+            raise SystemExit("phase_trace: the traced K7 disagrees with "
+                             "its block scheme")
+        row = {"kernel": "bcd_sweep", "n": n, "sweeps": 4,
+               "scheme": bcd_sweep.plan_qp_sweep(n).scheme,
+               "span_us": float(t[1] - t[0]) / 1e3,
+               "launch_us": round(float(t[K7_END]) / clock_hz * 1e6, 3)}
+        for name, col in K7_PHASES:
+            row[f"{name}_us"] = round(float(t[col]) / clock_hz * 1e6, 3)
+        row["qp_ns_per_step"] = row["qp_us"] * 1e3 / (4 * (n - 1))
         emit(row)
 
 
@@ -368,6 +425,8 @@ def main(argv=None):
             trace_k2(libs, clock_hz, dev, emit, corpus.n_words, mb)
     if "k1" in want:
         trace_k1(libs, clock_hz, dev, emit, corpus)
+    if "k7" in want:
+        trace_k7(libs, clock_hz, dev, emit, corpus)
     print(smi)
     return 0
 

@@ -16,7 +16,8 @@
   gram.py           — its ctypes wrapper
   csrc/bcd_sweep.cu — K7, box-QP coordinate descent of one row update (one
                       launch per row update: the legacy per-row solver)
-  bcd_sweep.py      — its ctypes wrapper
+  bcd_sweep.py      — its ctypes wrapper and launch plan
+  csrc/box_qp.cuh   — the box-QP coordinate step K1 and K7 share
   ref.py            — the plain PyTorch versions the kernels are held to
   ops.py            — the public wrappers (device dispatch, launch counts)
   _build.py         — nvcc build at first use

@@ -230,5 +230,36 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_bad_shapes():
     Y = torch.eye(5, dtype=torch.float64)
     with pytest.raises(ValueError, match="CUDA"):
         bcd_sweep.qp_sweep_cuda(Y, Y[0], 0.1, Y[0], 0, 2)
-    # the state of n coordinates must fit a block's shared memory
-    assert bcd_sweep.max_n(8) == 9680 and bcd_sweep.max_n(4) == 19365
+
+
+@pytest.mark.parametrize("n,itemsize,scheme,slots,threads", [
+    (224, 4, "warp", 7, 32), (225, 4, "block", 0, 256),
+    (160, 8, "warp", 5, 32), (161, 8, "block", 0, 192),
+    (1, 4, "warp", 1, 32), (1, 8, "warp", 1, 32),
+    (19_365, 4, "block", 0, 512), (9_680, 8, "block", 0, 512)])
+def test_plan_qp_sweep_picks_the_scheme_by_size(n, itemsize, scheme, slots,
+                                                threads):
+    """K7's plan: one warp with Y in shared memory up to n_pad 224
+    (float32) / 160 (float64), the block-wide CTA beyond, up to the n
+    whose u, w and s fit shared memory (19,365 / 9,680)."""
+    plan = bcd_sweep.plan_qp_sweep(n, itemsize)
+    assert (plan.scheme, plan.slots, plan.threads) == (scheme, slots, threads)
+    assert plan.n_pad == max(32, -(-n // 32) * 32)
+    assert plan.smem_bytes <= bcd_sweep.SMEM_LIMIT_BYTES
+    assert bcd_sweep.plan_qp_sweep(n, itemsize, scheme) == plan
+    if scheme == "warp":
+        assert plan.smem_bytes == (plan.n_pad ** 2 + plan.n_pad + 32) \
+            * itemsize + 16
+        assert bcd_sweep.plan_qp_sweep(n, itemsize, "block").threads \
+            == plan.n_pad
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            bcd_sweep.plan_qp_sweep(n, itemsize, "warp")
+
+
+@pytest.mark.parametrize("n,itemsize,scheme", [
+    (19_366, 4, "auto"), (9_681, 8, "block"), (225, 4, "warp"),
+    (8, 4, "global")])
+def test_plan_qp_sweep_refuses_what_does_not_fit(n, itemsize, scheme):
+    with pytest.raises(ValueError, match="shared memory|unknown scheme"):
+        bcd_sweep.plan_qp_sweep(n, itemsize, scheme)

@@ -128,7 +128,8 @@ def test_phase_trace_reads_marks_the_kernels_carry():
     phase marks (no source text matched): every phase it reads is marked
     in its kernel, and its copies define the marks ahead of the headers'
     empty defaults: ``GRAM_TRACE`` in K3 and K6, ``PHASE_*`` in K1 (the
-    spans of a solve's phases and its bisection steps) and K2."""
+    spans of a solve's phases and its bisection steps), K2 and K7 (the
+    one-warp scheme's copy, matvec, chain and write-out)."""
     import importlib.util
 
     from repro_torch.kernels import _build
@@ -152,7 +153,8 @@ def test_phase_trace_reads_marks_the_kernels_carry():
     for name, cols in (
             ("csr_stats", {c for _, c in trace.K2_PHASES}),
             ("bcd_fused", {c for _, c in trace.K1_PHASES}
-             | {trace.K1_TAU_STEPS, trace.K1_END})):
+             | {trace.K1_TAU_STEPS, trace.K1_END}),
+            ("bcd_sweep", {c for _, c in trace.K7_PHASES} | {trace.K7_END})):
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert '#include "phase_trace.cuh"' in src, name
         assert re.search(r"PHASE_START\(", src), name
@@ -160,7 +162,7 @@ def test_phase_trace_reads_marks_the_kernels_carry():
             r"PHASE_(?:MARK|SPAN|COUNT)\([^;]*?,\s*(\d+)\s*[,)]", src)}
         assert marked == cols, (name, marked, cols)
     assert set(trace.SOURCES.values()) == {"bcd_fused", "csr_stats",
-                                           "csr_gram", "gram"}
+                                           "csr_gram", "gram", "bcd_sweep"}
 
 
 def test_chip_smoke_refuses_without_card_and_outside_checkout(tmp_path):
@@ -569,3 +571,94 @@ def test_qp_sweep_kernel_matches_plain_version_on_card(cuda, n, j, dtype):
         assert torch.equal(g, a)
         assert float((g - w).abs().max()) <= rtol * float(w.abs().max())
     assert float(got[0][j]) == 0.0
+
+
+def _qp_row_update(n, j, kind, dtype, device, seed):
+    """A row update's box QP on the card: ``(Y, s, lam)``, Y symmetric
+    with row and column j zero, s_j zero.  ``dense``: X = F^T F / (n + 9)
+    + 0.1 I; ``nonpos_diag``: that X with every third diagonal entry 0 or
+    negative (the step's y1 <= 0 branch); ``identity``: X = I, the first
+    row update of a solve from the identity (every dividend zero);
+    ``row_j_kept``: the dense X with row and column j left as they are
+    (the kernel must not rely on them being zero)."""
+    rng = np.random.default_rng(seed)
+    F = rng.normal(size=(n + 9, n))
+    X = F.T @ F / (n + 9) + 0.1 * np.eye(n)
+    if kind == "nonpos_diag":
+        d = np.arange(0, n, 3)
+        X[d, d] = -X[d, d] * (d % 2)
+    elif kind == "identity":
+        X = np.eye(n)
+    m = np.ones(n)
+    m[j] = 0.0
+    S = F.T @ F / (n + 9)
+    if kind != "row_j_kept":
+        X = X * m[:, None] * m[None, :]
+    Y = torch.tensor(X, dtype=dtype, device=device)
+    s = torch.tensor(S[:, j] * m, dtype=dtype, device=device)
+    return Y, s, 0.4 * float(s.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sweeps", [0, 1])
+@pytest.mark.parametrize("at", ["first", "last"])
+@pytest.mark.parametrize("dtype,n", [
+    (torch.float32, 9), (torch.float32, 33), (torch.float32, 97),
+    (torch.float32, 224), (torch.float32, 225), (torch.float64, 160),
+    (torch.float64, 161)])
+def test_qp_sweep_schemes_match_plain_version_on_card(cuda, dtype, n, at,
+                                                      sweeps):
+    """K7 about its schemes' edges (float32 n 224 the last ``warp``, 225
+    ``block``; float64 160 / 161), j first and last, no sweep and one, on
+    a dense Y, one with non-positive diagonal entries, an identity start
+    and a Y whose row and column j are not zero: each output against its
+    own largest |value| (float64 1e-12, float32 1e-4), the pinned
+    coordinate untouched, one launch each."""
+    from repro_torch.kernels import bcd_sweep, ops
+
+    j = 0 if at == "first" else n - 1
+    for kind in ("dense", "nonpos_diag", "identity", "row_j_kept"):
+        Y, s, lam = _qp_row_update(n, j, kind, dtype, cuda, seed=n + j)
+        bcd_sweep.reset_launches()
+        got = ops.qp_sweeps(Y, s, lam, s, j, sweeps=sweeps, impl="cuda")
+        want = ops.qp_sweeps(Y, s, lam, s, j, sweeps=sweeps, impl="ref")
+        torch.cuda.synchronize()
+        assert bcd_sweep.launches == 1
+        rtol = 1e-12 if dtype == torch.float64 else 1e-4
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and g.shape == w.shape
+            scale = max(float(w.abs().max()), 1e-30)
+            assert float((g - w).abs().max()) <= rtol * scale, kind
+        assert float(got[0][j]) == float(s[j]) == 0.0, kind
+        if sweeps == 0:
+            assert torch.equal(got[0], s), kind
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,n", [
+    (torch.float32, 1), (torch.float32, 9), (torch.float32, 33),
+    (torch.float32, 97), (torch.float32, 192), (torch.float32, 224),
+    (torch.float64, 33), (torch.float64, 160)])
+def test_qp_sweep_warp_and_block_give_the_same_bits_on_card(cuda, dtype, n):
+    """Where both schemes fit, the one-warp kernel and the block-wide one
+    reduce in one order: the same bits for w and R2, and u up to the sign
+    of a zero, at j first, middle and last, 4 sweeps, on the four kinds
+    of Y (row and column j kept among them), also with Y at a storage
+    offset that no 16-byte boundary meets (the bulk copy's unaligned head
+    and tail)."""
+    from repro_torch.kernels import bcd_sweep
+
+    for kind in ("dense", "nonpos_diag", "identity", "row_j_kept"):
+        for j in sorted({0, n // 2, n - 1}):
+            Y, s, lam = _qp_row_update(n, j, kind, dtype, cuda, seed=3 * n + j)
+            for offset in (0, 1, 3):
+                buf = torch.zeros(n * n + offset, dtype=dtype, device=cuda)
+                buf[offset:] = Y.reshape(-1)
+                Yv = buf[offset:].view(n, n)
+                warp = bcd_sweep.qp_sweep_cuda(Yv, s, lam, s, j, 4, "warp")
+                block = bcd_sweep.qp_sweep_cuda(Yv, s, lam, s, j, 4, "block")
+                torch.cuda.synchronize()
+                case = (kind, j, offset)
+                assert torch.equal(warp[1], block[1]), case
+                assert torch.equal(warp[2], block[2]), case
+                assert torch.equal(warp[0] + 0.0, block[0] + 0.0), case
