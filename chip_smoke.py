@@ -42,7 +42,21 @@ words, 5 components, target cardinality 5):
   against ``serve_topics_nytimes.json``; K4 is held to its plain version
   and to the record's reference scores, timed at B 64 and 512 beside its
   bound, ``X @ W`` and a one-element launch's device time, and a batch's
-  time is split between its host and device parts.
+  time is split between its host and device parts;
+* reliability, on the 300k store (``resume_streaming``): the streaming
+  fit with pass and fit checkpoints (``resume_dir``) beside the fit
+  without, in turns on one clock, with its checkpoints' count, bytes and
+  span time; the fit killed by an injected read fault halfway into the
+  Gram pass and resumed; the screen and Gram passes killed and resumed
+  against uninterrupted ones (``sum``, ``sumsq``, ``g``, ``err``: a max
+  abs difference of 0); the fit killed by an injected launch failure
+  mid-search and resumed; and the pass watchdog expiring mid-pass and the
+  fit resumed: every resumed fit equal to the clean card run, through
+  K2, K3 and K1;
+* live telemetry (``export``): the serving launcher with
+  ``--export-port 0``, ``/metrics``, ``/healthz`` and ``/varz`` scraped
+  while it serves and just before it stops; K4's count on ``/metrics``
+  equal to its launches, docs/s beside the run without the exporter.
 
 Each phase prints one JSON line; a failed check raises, so the script
 exits non-zero.  The last lines are the kernel table, the card's name
@@ -1252,6 +1266,404 @@ def phase_dense_timing(corpus, dense, clock, qp_sizes):
 # ---------------------------------------------------------------- streaming
 
 
+def _stream_cfg(**kw):
+    """The streaming launcher's configuration (its pass geometry at the
+    defaults: chunk_nnz 16,384, chunk_rows 512, megabatch 8)."""
+    from repro_torch.core import SPCAConfig
+
+    return SPCAConfig(max_sweeps=8, lam_search_evals=8, **kw)
+
+
+def _stream_fit(store_dir, cfg, *, traced=False):
+    """``fit_components`` on a fresh handle of the 300k store (the
+    launcher's path: the screen pass, one union-support Gram pass, the
+    searches), its kernel counts set to 0 just before and read just
+    after.  Returns (results, diagnostics, seconds, counts, spans)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.core import fit_components
+    from repro_torch.kernels import bcd_fused, csr_gram, csr_stats
+    from repro_torch.obs import metrics, trace
+    from repro_torch.sparse import SparseCorpus
+
+    store = SparseCorpus.open(store_dir)
+    diag = {}
+    with metrics.use_registry() as reg, \
+            (trace.enable() if traced else contextlib.nullcontext()) as tr:
+        for k in (bcd_fused, csr_stats, csr_gram):
+            k.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            results = fit_components(store, 5, target_card=5, cfg=cfg,
+                                     diagnostics=diag)
+        finally:
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {"csr_stats": csr_stats.launches,
+                      "csr_gram": csr_gram.launches,
+                      "bcd_fused": bcd_fused.launches,
+                      "fit.resume.checkpoints":
+                          reg.value("fit.resume.checkpoints"),
+                      "ingest.resume.checkpoints":
+                          reg.value("ingest.resume.checkpoints")}
+            spans = None
+            if tr is not None:
+                cps = tr.find("ingest.resume.checkpoint")
+                spans = {"ingest.resume.checkpoint": len(cps),
+                         "ingest.resume.checkpoint_s":
+                             sum(sp.total_s for sp in cps),
+                         "fit.checkpoint_s": sum(
+                             sp.total_s for sp in tr.find("fit.checkpoint"))}
+    return results, diag, wall, counts, spans
+
+
+def _fit_key(results):
+    return [(r.support.tolist(), r.lam, r.variance) for r in results]
+
+
+def _ckpt_bytes(root):
+    """Bytes of each checkpoint directory under a resume root (the newest
+    checkpoint of each pass and of the fit)."""
+    out = {}
+    for name in sorted(os.listdir(root)):
+        d = os.path.join(root, name)
+        out[name.rsplit("_", 1)[0]] = sum(
+            os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    return out
+
+
+def _pass_state(root, kind):
+    """The final accumulator state of a pass: its complete checkpoint."""
+    import numpy as np
+
+    (name,) = [n for n in os.listdir(root) if n.startswith(f"pass_{kind}_")]
+    with np.load(os.path.join(root, name, "state.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def phase_resume_streaming(record, store_dir, support):
+    """Kill-and-resume of the streaming fit on the 300k store (pass and
+    fit checkpoints, fault injection, the pass watchdog) on the card:
+
+    (a) the launcher's fit with ``resume_dir`` (16 megabatches between
+        pass checkpoints), held to the streaming record's supports, its
+        seconds beside the fit without checkpoints on the same clock (in
+        turns, plain / checkpointed twice), the checkpoints, their bytes,
+        and the time in ``ingest.resume.checkpoint`` spans (a traced run);
+    (b) the fit killed by a read fault halfway into the Gram pass's reads
+        (no retries), then run again: it resumes both passes
+        (``resumed_megabatches`` > 0, fewer chunks than 2 x 3,658) through
+        K3 (never the plain version) and gives (a)'s supports, lambdas and
+        variances exactly;
+    (c) the screen and Gram passes alone through ``sparse.engine``, killed
+        and resumed, against uninterrupted passes: ``sum``, ``sumsq``,
+        ``g`` and ``err`` with a max abs difference of 0;
+    (d) the fit killed by a launch failure (K1's site ``bcd_solve``) on
+        the second evaluation of the first component after the first that
+        takes two (components 1-3 of this fit take one each: component
+        4), then run again: the completed components restored, the
+        evaluation skipped, 0 chunks re-streamed, (a)'s results exactly;
+    (e) the fit under a pass deadline of half a screen pass: the watchdog
+        raises ``PassDeadlineError`` mid-pass; run again without it, the
+        fit resumes the pass and gives (a)'s results exactly."""
+    import numpy as np
+    import torch
+
+    from repro_torch.obs.health import PassDeadlineError
+    from repro_torch.sparse import SparseCorpus, engine
+    from repro_torch.testing import (
+        FaultInjector, InjectedDispatchError, SolverFaultInjector,
+        dispatch_error, fail_nth_read, install, install_solver)
+
+    smi = nvidia_smi()
+    dev = torch.device("cuda")
+    root = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        # (a) clean runs, plain and checkpointed in turns, then one traced
+        runs = []
+        for turn in range(2):
+            for ck in (False, True):
+                rd = os.path.join(root, f"a{turn}") if ck else None
+                res, diag, wall, counts, _ = _stream_fit(
+                    store_dir, _stream_cfg(resume_dir=rd))
+                runs.append({"checkpointed": ck, "seconds": wall,
+                             "key": _fit_key(res), "diag": diag,
+                             "counts": counts})
+        clean = runs[1]
+        res_a = clean["key"]
+        res_t, _, wall_t, _, spans = _stream_fit(
+            store_dir, _stream_cfg(resume_dir=os.path.join(root, "traced")),
+            traced=True)
+        plain_s = [r["seconds"] for r in runs if not r["checkpointed"]]
+        ckpt_s = [r["seconds"] for r in runs if r["checkpointed"]]
+        sizes = _ckpt_bytes(os.path.join(root, "a0"))
+        ing = clean["diag"]["ingest"]
+        per_pass = {k: ing[f"{k}_launches"] // 16 + 1
+                    for k in ("screen", "gram")}
+        rec = record["fit"]["components"]
+        emit("resume_streaming", step="a_clean", nvidia_smi=smi,
+             plain_s=plain_s, checkpointed_s=ckpt_s,
+             traced_checkpointed_s=wall_t,
+             pass_checkpoints=ing["resume_checkpoints"],
+             checkpoints_per_pass=per_pass,
+             fit_checkpoints=clean["counts"]["fit.resume.checkpoints"],
+             checkpoint_bytes=sizes,
+             pass_checkpoint_bytes_written=sum(
+                 sizes[f"pass_{k}"] * n for k, n in per_pass.items()),
+             spans=spans,
+             components=[{"support_equal": k[0] == c["support"],
+                          "lam": [k[1], c["lam"]], "variance": k[2]}
+                         for k, c in zip(res_a, rec)],
+             counts=clean["counts"])
+        check(all(r["key"] == res_a for r in runs)
+              and _fit_key(res_t) == res_a,
+              "the checkpointed and plain fits differ")
+        check([k[0] for k in res_a] == [c["support"] for c in rec],
+              "the checkpointed fit's supports differ from the record")
+        check(ing["resume_checkpoints"] == sum(per_pass.values()),
+              "pass checkpoints != one every 16 megabatches + 1 complete")
+
+        # (b) kill halfway into the Gram pass's reads, then resume
+        probe = FaultInjector()
+        with install(probe):
+            engine.sparse_feature_variances(SparseCorpus.open(store_dir),
+                                            device=dev)
+        kill_at = probe.reads + probe.reads // 2
+        rd = os.path.join(root, "b")
+        cfg_b = _stream_cfg(resume_dir=rd, io_retries=0)
+        kill = FaultInjector(fail_nth_read(kill_at, match="*.npy",
+                                           times=10**9))
+        killed = None
+        try:
+            with install(kill):
+                _stream_fit(store_dir, cfg_b)
+        except OSError as e:
+            killed = f"{type(e).__name__}: {e}"
+        res_b, diag_b, wall_b, counts_b, _ = _stream_fit(store_dir, cfg_b)
+        ing_b = diag_b["ingest"]
+        emit("resume_streaming", step="b_kill_mid_gram", nvidia_smi=smi,
+             kill_at_read=kill_at, screen_pass_reads=probe.reads,
+             killed=killed, resumed_seconds=wall_b,
+             resumed_megabatches=diag_b["resumed_megabatches"],
+             chunks=ing_b.get("chunks", 0),
+             clean_chunks=clean["diag"]["ingest"]["chunks"],
+             counts=counts_b, same_as_clean=_fit_key(res_b) == res_a)
+        check(killed is not None and "injected" in killed,
+              "the read fault did not kill the fit")
+        check(diag_b["resumed_megabatches"] > 0
+              and 0 < ing_b.get("chunks", 0)
+              < clean["diag"]["ingest"]["chunks"],
+              "the resumed fit re-streamed everything or nothing")
+        check(counts_b["csr_gram"] == ing_b["gram_launches"] > 0
+              and counts_b["csr_stats"] == ing_b.get("screen_launches", 0),
+              "the resumed passes did not run on K2/K3")
+        check(_fit_key(res_b) == res_a,
+              "the resumed fit differs from the clean card run")
+
+        # (c) the passes alone: killed + resumed vs uninterrupted, bit for bit
+        t0 = time.perf_counter()
+        scr = engine.sparse_feature_variances(
+            SparseCorpus.open(store_dir), device=dev,
+            resume_dir=os.path.join(root, "c0"))
+        torch.cuda.synchronize()
+        screen_s = time.perf_counter() - t0
+        means = scr.means.cpu().numpy()
+        engine.sparse_reduced_covariance(
+            SparseCorpus.open(store_dir), support, means=means, device=dev,
+            resume_dir=os.path.join(root, "c0"))
+        diffs = {}
+        resumed = {}
+        for kind in ("screen", "gram"):
+            def run(**kw):
+                st = SparseCorpus.open(store_dir)
+                if kind == "screen":
+                    return engine.sparse_feature_variances(st, device=dev,
+                                                           **kw)
+                return engine.sparse_reduced_covariance(
+                    st, support, means=means, device=dev, **kw)
+            probe = FaultInjector()
+            with install(probe):
+                run()
+            ctr = {}
+            rd = os.path.join(root, "c1")
+            try:
+                with install(FaultInjector(fail_nth_read(
+                        probe.reads // 2, match="*.npy", times=10**9))):
+                    run(resume_dir=rd, io_retries=0)
+                check(False, f"the {kind} pass was not killed")
+            except OSError:
+                pass
+            run(resume_dir=rd, counters=ctr)
+            resumed[kind] = ctr["resumed_megabatches"]
+            want = _pass_state(os.path.join(root, "c0"), kind)
+            got = _pass_state(rd, kind)
+            for k in want:
+                if k == "count":
+                    check(int(got[k]) == int(want[k]), f"{kind} count")
+                    continue
+                diffs[k] = float(np.max(np.abs(
+                    got[k].astype(np.float64) - want[k].astype(np.float64))))
+        emit("resume_streaming", step="c_passes_bit_for_bit",
+             nvidia_smi=smi, max_abs_diff=diffs,
+             resumed_megabatches=resumed, screen_pass_s=screen_s)
+        check(set(diffs) == {"sum", "sumsq", "g", "err"}
+              and all(v == 0.0 for v in diffs.values())
+              and all(v > 0 for v in resumed.values()),
+              "a resumed pass differs from the uninterrupted one")
+
+        # (d) kill on the second evaluation of the first component after
+        # the first that takes two or more (K1's site; each evaluation is
+        # one ``bcd_solve`` call on the card, its fallback re-solve none)
+        evals = [c["evals"] for c in clean["diag"]["components"]]
+        k = next((i for i, e in enumerate(evals) if i and e >= 2), None)
+        check(k is not None, "no component after the first took 2 evals")
+        rd = os.path.join(root, "d")
+        inj = SolverFaultInjector(dispatch_error(n=sum(evals[:k]) + 1,
+                                                 match="bcd_solve"))
+        killed = None
+        try:
+            with install_solver(inj):
+                _stream_fit(store_dir, _stream_cfg(resume_dir=rd))
+        except InjectedDispatchError as e:
+            killed = str(e)
+        res_d, diag_d, wall_d, counts_d, _ = _stream_fit(
+            store_dir, _stream_cfg(resume_dir=rd))
+        fr = diag_d["fit_resume"]
+        emit("resume_streaming", step="d_kill_mid_search", nvidia_smi=smi,
+             killed=killed, component=k + 1, evals=evals, fit_resume=fr,
+             resumed_seconds=wall_d,
+             chunks=diag_d["ingest"].get("chunks", 0),
+             resumed_megabatches=diag_d["resumed_megabatches"],
+             counts=counts_d, same_as_clean=_fit_key(res_d) == res_a)
+        check(killed is not None and inj.injected["dispatch"] == 1,
+              "the launch failure did not kill the fit")
+        check(fr["components_restored"] == k and fr["evals_skipped"] >= 1,
+              "the search did not resume from its checkpoint")
+        check(diag_d["ingest"].get("chunks", 0) == 0,
+              "the search resume re-streamed the corpus")
+        check(counts_d["bcd_fused"] > 0, "the resumed search did not run K1")
+        check(_fit_key(res_d) == res_a,
+              "the search-resumed fit differs from the clean card run")
+
+        # (e) the pass watchdog at half a screen pass
+        rd = os.path.join(root, "e")
+        deadline = screen_s / 2
+        expired = None
+        try:
+            _stream_fit(store_dir, _stream_cfg(resume_dir=rd,
+                                               pass_deadline_s=deadline))
+        except PassDeadlineError as e:
+            expired = {"what": e.what, "budget_s": e.budget_s,
+                       "elapsed_s": e.elapsed_s}
+        res_e, diag_e, wall_e, counts_e, _ = _stream_fit(
+            store_dir, _stream_cfg(resume_dir=rd))
+        emit("resume_streaming", step="e_pass_deadline", nvidia_smi=smi,
+             deadline_s=deadline, expired=expired, resumed_seconds=wall_e,
+             resumed_megabatches=diag_e["resumed_megabatches"],
+             chunks=diag_e["ingest"].get("chunks", 0), counts=counts_e,
+             same_as_clean=_fit_key(res_e) == res_a)
+        check(expired is not None, "the pass deadline did not expire")
+        check(diag_e["resumed_megabatches"] > 0,
+              "the expired pass did not resume from a checkpoint")
+        check(_fit_key(res_e) == res_a,
+              "the deadline-resumed fit differs from the clean card run")
+    finally:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_export(served):
+    """The serving launcher at ``SERVE_ARGS`` with ``--export-port 0``:
+    ``/metrics``, ``/healthz`` and ``/varz`` scraped on 127.0.0.1 from a
+    thread while it serves and once more just before the exporter stops;
+    K4's count on ``/metrics`` = the run's K4 launches (batches + 2);
+    ``/healthz`` 200 with the serving rules quiet (no p99, shed or
+    timeout rule firing; the solver pack's stall-burst warning may: the
+    fit's fused solves stall and are re-solved); docs/s and p99 beside the
+    `serve` phase's (no exporter)."""
+    import re
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from repro_torch.kernels import project
+    from repro_torch.launch import serve_topics
+    from repro_torch.obs import metrics
+
+    def scrape(port):
+        row = {}
+        for path in ("/metrics", "/healthz", "/varz"):
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+                    row[path] = (r.status, r.read().decode())
+            except urllib.error.HTTPError as e:
+                row[path] = (e.code, e.read().decode())
+        return row
+
+    rows, final, stop = [], {}, threading.Event()
+
+    def hook(exp):
+        def loop():
+            while not stop.is_set():
+                rows.append(scrape(exp.port))
+                stop.wait(0.25)
+
+        t = threading.Thread(target=loop, daemon=True)
+        orig_stop = exp.stop
+
+        def stop_after_a_last_scrape():
+            stop.set()
+            t.join(timeout=60)
+            final.update(scrape(exp.port))
+            orig_stop()
+
+        exp.stop = stop_after_a_last_scrape
+        t.start()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_registry_") as root, \
+            metrics.use_registry():
+        project.reset_launches()
+        out = serve_topics.main(
+            SERVE_ARGS + ["--registry", root, "--export-port", "0",
+                          "--export-interval", "0.5"], on_exporter=hook)
+        launches = project.launches
+    m = re.search(r"^kernel_launches_sparse_project_total (\d+)$",
+                  final["/metrics"][1], re.M)
+    scraped = int(m.group(1)) if m else None
+    quiet = {"serve_p99_latency", "serve_shed_burst", "serve_timeout_burst"}
+    fired = set()
+    for r in rows:
+        fired |= {f["rule"] for f in json.loads(r["/healthz"][1])["firing"]}
+    serving = [json.loads(r["/healthz"][1])["status"] for r in rows]
+    batches = sum(out["batches"])
+    emit("export", nvidia_smi=nvidia_smi(), scrapes=len(rows),
+         healthz_codes=sorted({r["/healthz"][0] for r in rows}),
+         healthz_status_while_serving=sorted(set(serving)),
+         rules_fired_while_serving=sorted(fired),
+         final_healthz=[final["/healthz"][0],
+                        json.loads(final["/healthz"][1])["status"]],
+         metrics_bytes=len(final["/metrics"][1]),
+         varz_keys=sorted(json.loads(final["/varz"][1])),
+         k4_on_metrics=scraped, project_launches=launches,
+         batches=out["batches"], warmups=out["warmups"],
+         docs_per_s=out["served"] / out["serve_s"],
+         docs_per_s_without_exporter=served["served"] / served["serve_s"],
+         p99_ms=out["latency"]["p99_ms"],
+         p99_ms_without_exporter=served["latency"]["p99_ms"])
+    check(rows and all(r[p][0] == 200 for r in rows for p in r),
+          "an endpoint did not answer 200 while serving")
+    check(not fired & quiet and set(serving) <= {"ok", "degraded"},
+          "a serving rule fired while serving")
+    check(final["/healthz"][0] == 200, "/healthz did not answer 200")
+    check(scraped == launches == batches + out["warmups"] > 0,
+          "K4's count on /metrics != project_launches != batches + 2")
+
+
 def _rel_err(got, want):
     """max |got - want| over max |want|, both moved to float64."""
     import torch
@@ -2050,12 +2462,15 @@ def main():
         phase_ingest_passes(s_corpus, store, sups["union"], exact)
         trow = phase_csr_timing(store, sups["union"], first_mb)
         del store
+        # slice (e): kill-and-resume of the streaming fit on the same store
+        phase_resume_streaming(srecord, store_dir, sups["union"])
     del s_corpus
     # slice (c): serving and K4
     served = phase_serve(vrecord)
     p_worst, p_rerun = phase_project_parity(vrecord, served["queries"])
     prow = phase_project_timing(vrecord, served["queries"])
     phase_serve_split(served["version"], served["queries"])
+    phase_export(served)
     phase_per_row_profile(corpus)
     del corpus
     kernels = [{

@@ -16,6 +16,14 @@ paper's disjoint topics); 'project' is Hotelling deflation.
 Tensors live on one device: the device of the tensors given, else
 ``device`` (the card by default).  Supports and loadings in `PCResult` are
 host numpy arrays, as in the reference.
+
+With ``SPCAConfig.resume_dir`` a fit checkpoints as the reference's does:
+its corpus passes at megabatch boundaries (`sparse.resume`), every
+completed component and the active lambda search's cursor
+(`core.fitstate`), so a killed fit run again resumes at the last
+component/eval boundary with the same results.  ``solve_deadline_s``
+arms a watchdog over each search round, checked after that round's
+checkpoint.
 """
 from __future__ import annotations
 
@@ -25,8 +33,8 @@ from dataclasses import dataclass, field, replace
 import numpy as np
 import torch
 
-from ..device import as_tensor
-from ..obs import metrics, trace
+from ..device import as_tensor, to_host
+from ..obs import health, metrics, trace
 from . import bcd, elimination, validate
 
 
@@ -53,11 +61,15 @@ class PCResult:
 @dataclass
 class SPCAConfig:
     """The reference's configuration, field for field, so a config dict
-    carries across (`repro_torch.convert.from_reference`).  Fields whose
-    machinery is not ported yet raise `NotImplementedError` when set (see
+    carries across (`repro_torch.convert.from_reference`).  The two fields
+    whose machinery is not ported yet (``mesh_devices``,
+    ``lam_grid_probe``) raise `NotImplementedError` when set (see
     `check_config`); the out-of-core fields (``chunk_nnz`` ...
-    ``io_backoff_s``) only matter to a store handle.  ``csr_impl`` is the
-    CSR wrappers' ``impl``: 'auto' | 'cuda' | 'ref'."""
+    ``io_backoff_s``, ``checkpoint_every``, ``pass_deadline_s``) only
+    matter to a store handle.  ``resume_dir`` checkpoints the passes and
+    the fit (``fit_checkpoint_every`` evals/rounds between search
+    cursors); ``solve_deadline_s`` bounds each search round.
+    ``csr_impl`` is the CSR wrappers' ``impl``: 'auto' | 'cuda' | 'ref'."""
 
     center: bool = True
     max_reduced: int = 2048
@@ -106,11 +118,6 @@ def check_config(cfg: SPCAConfig) -> None:
     """Refuse the fields whose machinery this port does not have yet,
     naming the ROADMAP item that ports it."""
     todo = {
-        "resume_dir": (cfg.resume_dir, "queue 1 item 8 (reliability)"),
-        "pass_deadline_s": (cfg.pass_deadline_s,
-                            "queue 1 item 8 (watchdogs)"),
-        "solve_deadline_s": (cfg.solve_deadline_s,
-                             "queue 1 item 8 (watchdogs)"),
         "mesh_devices": (cfg.mesh_devices > 1, "queue 1 item 12 (mesh)"),
         "lam_grid_probe": (cfg.lam_grid_probe > 1,
                            "queue 1 item 15 (grid probe)"),
@@ -144,8 +151,8 @@ def _as_stats(data, is_covariance: bool, center: bool, device=None,
             megabatch=cfg.megabatch_chunks,
             prefetch_depth=cfg.ingest_prefetch, counters=counters,
             io_retries=cfg.io_retries, io_backoff_s=cfg.io_backoff_s,
-            resume_dir=cfg.resume_dir, pass_deadline_s=cfg.pass_deadline_s,
-            device=device)
+            resume_dir=cfg.resume_dir, checkpoint_every=cfg.checkpoint_every,
+            pass_deadline_s=cfg.pass_deadline_s, device=device)
     if is_covariance:
         Sigma = as_tensor(data, device)
 
@@ -173,6 +180,50 @@ def _debris_dir(cfg: SPCAConfig) -> str | None:
     if cfg.resume_dir:
         return os.path.join(cfg.resume_dir, "debris")
     return None
+
+
+def _solve_watchdog(cfg: SPCAConfig):
+    """The ``solve_deadline_s`` watchdog over one search round, or None."""
+    if cfg.solve_deadline_s is None:
+        return None
+    return health.Watchdog(cfg.solve_deadline_s, what="solve round",
+                           exc=health.SolveDeadlineError)
+
+
+def _pack_pc(r: PCResult) -> dict:
+    """PCResult -> the JSON + ndarray tree `core.fitstate` serializes (the
+    reference's keys; tensors brought to the host)."""
+    d = {
+        "x": np.asarray(r.x), "support": np.asarray(r.support),
+        "lam": float(r.lam), "variance": float(r.variance),
+        "cardinality": int(r.cardinality), "reduced_n": int(r.reduced_n),
+        "gap": float(r.gap), "sweeps": int(r.sweeps),
+        "fallbacks": int(r.fallbacks),
+    }
+    for name in ("reduced_support", "X_reduced", "Sigma_reduced"):
+        val = getattr(r, name)
+        if val is not None:
+            d[name] = to_host(val)
+    return d
+
+
+def _unpack_pc(d: dict, device=None) -> PCResult:
+    """Inverse of `_pack_pc`; the reduced iterate and Sigma_hat go back to
+    ``device`` as tensors, unchanged."""
+    def arr(name):
+        v = d.get(name)
+        return None if v is None else as_tensor(v, device)
+
+    rs = d.get("reduced_support")
+    return PCResult(
+        x=np.asarray(d["x"]), support=np.asarray(d["support"], np.int64),
+        lam=float(d["lam"]), variance=float(d["variance"]),
+        cardinality=int(d["cardinality"]), reduced_n=int(d["reduced_n"]),
+        gap=float(d["gap"]), sweeps=int(d["sweeps"]),
+        fallbacks=int(d.get("fallbacks", 0)),
+        reduced_support=None if rs is None else np.asarray(rs, np.int64),
+        X_reduced=arr("X_reduced"), Sigma_reduced=arr("Sigma_reduced"),
+    )
 
 
 def _variance_order(v: np.ndarray) -> np.ndarray:
@@ -376,6 +427,8 @@ def search_lambda(
     keep_reduced: bool = False,
     cov_cache: ReducedCovarianceCache | None = None,
     device=None,
+    fit_ckpt=None,
+    component_k: int = 0,
 ) -> PCResult:
     """Geometric bisection on lambda for a solution with cardinality in
     [target_card, target_card + card_slack], keeping the best candidate.
@@ -385,7 +438,12 @@ def search_lambda(
     ``cfg.batch_evals > 1`` each round solves a whole geometric lambda grid
     as ONE batched launch instead.  ``diagnostics`` is filled with the
     eval/build/warm/launch counters; ``cov_cache`` injects a cache shared
-    across searches (its build/slice deltas are reported)."""
+    across searches (its build/slice deltas are reported).  ``fit_ckpt``
+    (a `fitstate.FitCheckpointer`) restores component ``component_k``'s
+    saved cursor, so the search runs exactly the remaining evaluations of
+    the uninterrupted one, and records the cursor after every evaluation
+    (batched: round); `SPCAConfig.solve_deadline_s` is checked after
+    that record."""
     if cfg is None:
         cfg = SPCAConfig()
     check_config(cfg)
@@ -395,7 +453,8 @@ def search_lambda(
         return _search_lambda_batched(
             target_card, cfg=cfg, active_mask=active_mask, stats=stats,
             diagnostics=diagnostics, keep_reduced=keep_reduced,
-            cov_cache=cov_cache, device=device,
+            cov_cache=cov_cache, device=device, fit_ckpt=fit_ckpt,
+            component_k=component_k,
         )
     variances, build = stats
     v = np.array(variances, copy=True)
@@ -409,11 +468,33 @@ def search_lambda(
     builds0 = cache.builds if cache is not None else 0
     slices0 = cache.slices if cache is not None else 0
 
+    # Resume: a saved cursor restores the bracket, the eval count, the
+    # incumbent and the warm block; the search then runs exactly the
+    # remaining evaluations of the uninterrupted one.
     best: PCResult | None = None
     warm: tuple | None = None
-    evals = warm_starts = total_sweeps = fallbacks = 0
+    start_eval = evals_skipped = fallbacks = 0
+    hit = False
+    cursor = (fit_ckpt.search_cursor(component_k) if fit_ckpt is not None
+              else None)
+    if cursor is not None:
+        lo, hi = float(cursor["lo"]), float(cursor["hi"])
+        start_eval = evals_skipped = int(cursor["evals"])
+        hit = bool(cursor.get("done", False))
+        fallbacks = int(cursor.get("fallbacks", 0))
+        if cursor.get("best") is not None:
+            best = _unpack_pc(cursor["best"], device)
+        if cfg.warm_start and cursor.get("warm_X") is not None:
+            warm = (as_tensor(cursor["warm_X"], device),
+                    np.asarray(cursor["warm_support"], np.int64))
+        metrics.counter("fit.resume.evals_skipped").inc(evals_skipped)
+
+    evals = warm_starts = total_sweeps = 0
     better = _card_better(cfg, target_card)
-    for _ in range(cfg.lam_search_evals):
+    for i in range(start_eval, cfg.lam_search_evals):
+        if hit:
+            break
+        wd = _solve_watchdog(cfg)
         lam = float(np.sqrt(lo * hi))  # geometric: variances span decades
         r = solve_at_lambda(
             data, lam, is_covariance=is_covariance, cfg=cfg,
@@ -430,12 +511,25 @@ def search_lambda(
             warm = (r.X_reduced, r.reduced_support)
         if better(r, best):
             best = r
-        if target_card <= r.cardinality <= target_card + cfg.card_slack:
-            break
-        if r.cardinality > target_card:
-            lo = lam   # too dense -> raise lambda
-        else:
-            hi = lam   # too sparse -> lower lambda
+        hit = target_card <= r.cardinality <= target_card + cfg.card_slack
+        if not hit:
+            if r.cardinality > target_card:
+                lo = lam   # too dense -> raise lambda
+            else:
+                hi = lam   # too sparse -> lower lambda
+        if fit_ckpt is not None:
+            # before the watchdog can raise: a deadline kill resumes too
+            fit_ckpt.record_search({
+                "k": int(component_k), "evals": i + 1,
+                "lo": float(lo), "hi": float(hi), "done": bool(hit),
+                "fallbacks": int(fallbacks), "best": _pack_pc(best),
+                "warm_X": None if warm is None or warm[0] is None
+                else to_host(warm[0]),
+                "warm_support": None if warm is None or warm[1] is None
+                else np.asarray(warm[1]),
+            })
+        if wd is not None:
+            wd.check()
     assert best is not None
     metrics.counter("search.evals").inc(evals)
     metrics.counter("search.warm_starts").inc(warm_starts)
@@ -449,7 +543,7 @@ def search_lambda(
             cov_slices=cache.slices - slices0 if cache is not None else 0,
             solve_launches=evals,
             batched=False,
-            evals_skipped=0,
+            evals_skipped=evals_skipped,
             fallbacks=fallbacks,
         )
     best = replace(best, fallbacks=fallbacks)
@@ -466,6 +560,40 @@ def _batched_impl(solver_impl: str) -> str:
     return {"fused_ref": "ref", "fused": "cuda"}.get(solver_impl, "auto")
 
 
+def _pack_batched_best(best: dict) -> dict:
+    """The batched search's incumbent as a serializable tree (the
+    reference's keys): the winning iterate X and the scalars the final
+    PCResult assembly reads."""
+    res = best["res"]
+    return {
+        "lam": float(best["lam"]), "t": int(best["t"]),
+        "cardinality": int(best["cardinality"]),
+        "variance": float(best["variance"]),
+        "x_red": to_host(best["x_red"]),
+        "X": to_host(res.X), "beta": float(res.beta),
+        "sweeps": int(res.sweeps),
+    }
+
+
+def _unpack_batched_best(d: dict, cfg: SPCAConfig, device=None) -> dict:
+    """Inverse of `_pack_batched_best`: the minimal `BCDResult` the search
+    tail needs (X, beta, sweeps; obj/phi/history were consumed by the
+    evaluation that produced them, so they come back as NaN)."""
+    X = as_tensor(d["X"], device)
+    nan = torch.tensor(float("nan"), dtype=X.dtype, device=X.device)
+    res = bcd.BCDResult(
+        X=X, Z=X / torch.trace(X), obj=nan, phi=nan,
+        history=torch.full((cfg.max_sweeps,), float("nan"), dtype=X.dtype,
+                           device=X.device),
+        sweeps=torch.tensor(int(d["sweeps"])), beta=float(d["beta"]))
+    return {
+        "lam": float(d["lam"]), "t": int(d["t"]), "res": res,
+        "x_red": as_tensor(d["x_red"], X.device),
+        "cardinality": int(d["cardinality"]),
+        "variance": float(d["variance"]),
+    }
+
+
 def _search_lambda_batched(
     target_card: int,
     *,
@@ -476,6 +604,8 @@ def _search_lambda_batched(
     keep_reduced: bool = False,
     cov_cache: ReducedCovarianceCache | None = None,
     device=None,
+    fit_ckpt=None,
+    component_k: int = 0,
 ) -> PCResult:
     """Lambda search as O(rounds) batched launches instead of O(evals).
 
@@ -509,8 +639,32 @@ def _search_lambda_batched(
     better = _card_better(cfg, target_card)
     best: dict | None = None
     warm: tuple | None = None     # (X on prefix, prefix length)
-    evals = launches = warm_starts = total_sweeps = fallbacks = 0
-    for _ in range(rounds):
+    evals = launches = warm_starts = total_sweeps = 0
+
+    # Resume: the cursor restores the tightened bracket, the round and
+    # eval counts, the incumbent and the warm block.  The base support
+    # above comes from the INITIAL bracket, as in the uninterrupted run, so
+    # restored prefix lengths index the same feat_perm order.
+    start_round = evals_skipped = fallbacks = 0
+    hit = False
+    cursor = (fit_ckpt.search_cursor(component_k) if fit_ckpt is not None
+              else None)
+    if cursor is not None:
+        lo, hi = float(cursor["lo"]), float(cursor["hi"])
+        start_round = int(cursor.get("rounds", 0))
+        evals_skipped = int(cursor["evals"])
+        hit = bool(cursor.get("done", False))
+        fallbacks = int(cursor.get("fallbacks", 0))
+        if cursor.get("best") is not None:
+            best = _unpack_batched_best(cursor["best"], cfg, dev)
+        if cfg.warm_start and cursor.get("warm_X") is not None:
+            warm = (as_tensor(cursor["warm_X"], dev), int(cursor["warm_t"]))
+        metrics.counter("fit.resume.evals_skipped").inc(evals_skipped)
+
+    for rd in range(start_round, rounds):
+        if hit:
+            break
+        wd = _solve_watchdog(cfg)
         lams = np.geomspace(lo, hi, B + 2)[1:-1]
         sizes = [
             min(_support_at(v, la, cfg.max_reduced, _buckets_of(cfg)).size,
@@ -579,8 +733,19 @@ def _search_lambda_batched(
                 hit = True        # bracket collapsed: no finer lambda left
             else:
                 lo, hi = float(new_lo), float(new_hi)
-        if hit:
-            break
+        if fit_ckpt is not None:
+            # before the watchdog can raise: a deadline kill resumes too
+            fit_ckpt.record_search({
+                "k": int(component_k), "rounds": rd + 1,
+                "evals": evals_skipped + evals,
+                "lo": float(lo), "hi": float(hi), "done": bool(hit),
+                "fallbacks": int(fallbacks),
+                "best": _pack_batched_best(best),
+                "warm_X": None if warm is None else to_host(warm[0]),
+                "warm_t": None if warm is None else int(warm[1]),
+            })
+        if wd is not None:
+            wd.check()
 
     assert best is not None
     t = best["t"]
@@ -605,7 +770,7 @@ def _search_lambda_batched(
             cov_slices=cache.slices - slices0 if cache is not None else 0,
             solve_launches=launches,
             batched=True,
-            evals_skipped=0,
+            evals_skipped=evals_skipped,
             fallbacks=fallbacks,
             mesh_degraded=0,
         )
@@ -735,6 +900,8 @@ def _fit_components(data, n_components, target_card, *, is_covariance, cfg,
     if cfg is None:
         cfg = SPCAConfig()
     check_config(cfg)
+    if device is None and isinstance(data, torch.Tensor):
+        device = data.device      # restored components join the data there
     if deflation == "project" and hasattr(data, "iter_chunks"):
         raise ValueError(
             "deflation='project' requires a dense (n, n) covariance; "
@@ -749,8 +916,32 @@ def _fit_components(data, n_components, target_card, *, is_covariance, cfg,
             stats = _as_stats(data, is_covariance, cfg.center, device, cfg,
                               counters=ingest)
         mask = np.ones(stats[0].shape[0], dtype=bool)
+        # Whole-fit checkpoints (core/fitstate.py): completed components
+        # are restored BEFORE any covariance work, so a fully restored fit
+        # never seeds the cache (out of core: zero Gram passes).
+        fit_ckpt = None
+        restored: list[PCResult] = []
+        if cfg.resume_dir:
+            from . import fitstate
+
+            fit_ckpt = fitstate.FitCheckpointer(
+                cfg.resume_dir, every=cfg.fit_checkpoint_every)
+            fstate = fit_ckpt.open(fitstate.fit_fingerprint(
+                stats[0], n_components=n_components, target_card=target_card,
+                deflation=deflation, cfg=cfg))
+            restored = [_unpack_pc(p, device)
+                        for p in fstate.components[:n_components]]
+            for r in restored:
+                results.append(r)
+                mask[r.support] = False
+                per_comp.append({
+                    "restored": True, "evals": 0, "warm_starts": 0,
+                    "total_sweeps": 0, "cov_builds": 0, "cov_slices": 0,
+                    "solve_launches": 0, "evals_skipped": 0,
+                    "fallbacks": 0, "batched": cfg.batch_evals > 1,
+                })
         cache: ReducedCovarianceCache | None = None
-        if cfg.reuse_covariance:
+        if cfg.reuse_covariance and len(results) < n_components:
             # One eager build on the union support serves every search
             # below via principal-submatrix slices.
             cache = ReducedCovarianceCache(stats[1], device)
@@ -758,7 +949,7 @@ def _fit_components(data, n_components, target_card, *, is_covariance, cfg,
                                        cfg)
             if base.size:
                 cache.get(base)
-        for k in range(n_components):
+        for k in range(len(results), n_components):
             d: dict = {}
             with trace.span("fit.component", k=k):
                 try:
@@ -766,7 +957,8 @@ def _fit_components(data, n_components, target_card, *, is_covariance, cfg,
                         data, target_card, is_covariance=is_covariance,
                         cfg=cfg, active_mask=mask, stats=stats,
                         diagnostics=d, keep_reduced=cfg.batch_deflation,
-                        cov_cache=cache, device=device,
+                        cov_cache=cache, device=device, fit_ckpt=fit_ckpt,
+                        component_k=k,
                     )
                 except bcd.SolverDivergenceError as e:
                     e.completed = tuple(results)
@@ -774,6 +966,10 @@ def _fit_components(data, n_components, target_card, *, is_covariance, cfg,
             per_comp.append(d)
             results.append(r)
             mask[r.support] = False
+            if fit_ckpt is not None:
+                fit_ckpt.record_component(_pack_pc(r))
+        if fit_ckpt is not None:
+            fit_ckpt.finish()
         refine_launches = 0
         refine_ctr: dict = {}
         if cfg.batch_deflation and results:
@@ -795,7 +991,9 @@ def _fit_components(data, n_components, target_card, *, is_covariance, cfg,
                 solver_fallbacks=total_fallbacks,
                 mesh_degraded=0,
                 fit_resume={
-                    "components_restored": 0, "evals_skipped": 0,
+                    "components_restored": len(restored),
+                    "evals_skipped": sum(
+                        d.get("evals_skipped", 0) for d in per_comp),
                     "fallbacks": total_fallbacks, "mesh_degraded": 0,
                 },
             )

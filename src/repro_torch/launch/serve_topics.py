@@ -28,9 +28,14 @@ the same steps on the CPU with the kernels' plain versions.
 
 The printed lines are the reference launcher's.  The training screen is
 float32 with an int32 count, as the reference launcher holds it (x64 off),
-so the two write the same registry manifest.  Not ported yet:
-``--export-port`` and ``--export-interval`` (ROADMAP queue 1 item 10) exit
-with code 2.
+so the two write the same registry manifest.
+
+Live telemetry: ``--export-port P`` (0 = an ephemeral port, printed)
+serves ``/metrics`` (Prometheus text: the ``serve.*`` instruments, the
+kernels' ``kernel.launches.*`` counts), ``/healthz`` (200 unless a
+critical rule of the serving and solver packs fires), ``/varz`` (with the
+live batcher's snapshot) and ``/tracez`` on 127.0.0.1, sampling every
+``--export-interval`` seconds.
 """
 from __future__ import annotations
 
@@ -47,11 +52,10 @@ from ..core import SPCAConfig, search_lambda
 from ..core.elimination import Screen
 from ..data.corpus import NYTIMES_TOPICS, make_corpus
 from ..device import resolve
-from ..obs import metrics, trace
+from ..obs import health, metrics, trace
+from ..obs.export import TelemetryExporter
 from ..serve import BatcherConfig, DriftMonitor, MicroBatcher, ModelRegistry
 from .spca_run import gram_of_support
-
-_NOT_PORTED = "queue 1 item 10 (rest of obs/)"
 
 
 def iter_docs(corpus):
@@ -149,16 +153,17 @@ def parse_args(argv=None):
                          "trace-event JSON (Perfetto-loadable)")
     ap.add_argument("--metrics", default="", metavar="PATH",
                     help="append one metrics-registry snapshot (JSON line) "
-                         "at exit")
+                         "at exit (with --export-port: a time series, one "
+                         "line per exporter interval)")
     ap.add_argument("--export-port", type=int, default=None, metavar="PORT",
-                    help="(not ported yet)")
-    ap.add_argument("--export-interval", type=float, default=None,
-                    metavar="S", help="(not ported yet)")
+                    help="start the background telemetry exporter and serve "
+                         "/metrics /healthz /varz /tracez on 127.0.0.1 at "
+                         "this port (0 = ephemeral)")
+    ap.add_argument("--export-interval", type=float, default=2.0,
+                    metavar="S",
+                    help="seconds between exporter samples (with "
+                         "--export-port)")
     args = ap.parse_args(argv)
-    for flag in ("export_port", "export_interval"):
-        if getattr(args, flag) is not None:
-            ap.exit(2, f"--{flag.replace('_', '-')} is not ported yet: "
-                       f"ROADMAP {_NOT_PORTED}\n")
     if args.smoke:
         args.docs = min(args.docs, 3000)
         args.words = min(args.words, 2500)
@@ -167,26 +172,50 @@ def parse_args(argv=None):
     return args
 
 
-def main(argv=None):
-    """Run the launcher; returns what `run` returns."""
+def main(argv=None, *, on_exporter=None):
+    """Run the launcher; returns what `run` returns.  ``on_exporter``, with
+    ``--export-port``, is called with the started `TelemetryExporter`
+    before the fit (a caller that scrapes the endpoints reads its port
+    there)."""
     args = parse_args(argv)
+    exporter = None
+    if args.export_port is not None:
+        exporter = TelemetryExporter(
+            interval_s=args.export_interval, port=args.export_port,
+            jsonl_path=args.metrics or None,
+            rules=health.serving_rules() + health.solver_rules(),
+            extra={"run": "serve_topics"})
     tracer = trace.install(trace.Tracer()) if args.trace else None
     try:
-        out = run(args)
+        if exporter is not None:
+            exporter.start()
+            print(f"telemetry: http://127.0.0.1:{exporter.port}"
+                  "/{metrics,healthz,varz,tracez} "
+                  f"(sampling every {args.export_interval:g}s)")
+            if on_exporter is not None:
+                on_exporter(exporter)
+        out = run(args, exporter)
     finally:
+        if exporter is not None:
+            exporter.stop()
         if tracer is not None:
             trace.install(None)
     if tracer is not None:
         tracer.dump_chrome_trace(args.trace)
         print(f"trace: {args.trace} (load at ui.perfetto.dev)")
+    if exporter is not None:
+        print(exporter.health().describe())
     if args.metrics:
-        metrics.get_registry().dump_jsonl(args.metrics,
-                                          extra={"run": "serve_topics"})
+        if exporter is None:
+            # one exit snapshot; with the exporter the file is already a
+            # time series (final flush included by exporter.stop())
+            metrics.get_registry().dump_jsonl(args.metrics,
+                                              extra={"run": "serve_topics"})
         print(f"metrics: {args.metrics}")
     return out
 
 
-def run(args):
+def run(args, exporter=None):
     """The four steps; returns a summary dict (the fit, the registered
     version, the served counts, the latency snapshot and both drift
     reports) for callers that check the run."""
@@ -196,10 +225,10 @@ def run(args):
     with contextlib.ExitStack() as stack:
         root = args.registry or stack.enter_context(
             tempfile.TemporaryDirectory(prefix="topic_registry_"))
-        return _run(args, device, root)
+        return _run(args, device, root, exporter)
 
 
-def _run(args, device, root):
+def _run(args, device, root, exporter=None):
     # 1. fit ---------------------------------------------------------------
     print(f"corpus: {args.docs} docs x {args.words} words")
     corpus = make_corpus(args.docs, args.words, topics=NYTIMES_TOPICS, seed=0)
@@ -228,6 +257,10 @@ def _run(args, device, root):
         BatcherConfig(max_batch=args.batch, max_wait_ms=2.0),
         observer=monitor.observe,
     )
+    if exporter is not None:
+        # /varz shows the live batcher (queue depth, timeouts, shed,
+        # p50/p99) beside the registry snapshot
+        exporter.add_snapshot_provider("serve.batcher", batcher.snapshot)
     with batcher:
         t0 = time.perf_counter()
         served, hist = serve_stream(batcher, iter_docs(queries))

@@ -20,9 +20,23 @@ K3, the gather-Gram), 1 + 1 corpus passes for ALL components (the screen
 and one union-support Gram shared by the deflation rounds), never an
 (m, n) dense array.  The printed lines are the reference launcher's.
 
-Not ported yet (each exits with the ROADMAP item that ports it):
-``--devices`` (queue 1 item 12), ``--resume`` and ``--pass-deadline-s``
-(item 8), ``--export-port`` (item 10).
+Reliability: ``--resume DIR`` checkpoints the fit into DIR (each corpus
+pass every ``--checkpoint-every`` megabatches, every completed component
+and the active lambda search's cursor); run the same command again after
+a kill and the passes restart at their last megabatch boundary, the
+solver phase at its last component/eval boundary, with the results of an
+uninterrupted run ("resumed N megabatch(es)" in the report).  Give
+``--store-dir`` with ``--streaming`` so the store outlives the run.
+``--pass-deadline-s`` / ``--solve-deadline-s`` bound a pass / a search
+round, raising at a resumable boundary.
+
+Live telemetry: ``--export-port P`` (0 = an ephemeral port, printed)
+serves ``/metrics`` (Prometheus text), ``/healthz``, ``/varz`` and
+``/tracez`` on 127.0.0.1 while the fit runs, sampling every
+``--export-interval`` seconds under the solver, ingestion and runtime
+health rules.
+
+Not ported yet: ``--devices`` (exits with ROADMAP queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -39,14 +53,10 @@ from ..configs.spca_experiments import NYTIMES, PUBMED
 from ..core import SPCAConfig, fit_components
 from ..data.corpus import NYTIMES_TOPICS, PUBMED_TOPICS, make_corpus
 from ..device import resolve
-from ..obs import metrics, profile, trace
+from ..obs import health, metrics, profile, trace
+from ..obs.export import TelemetryExporter
 
-_NOT_PORTED = {
-    "devices": "queue 1 item 12 (mesh)",
-    "resume": "queue 1 item 8 (reliability)",
-    "pass_deadline_s": "queue 1 item 8 (reliability)",
-    "export_port": "queue 1 item 10 (rest of obs/)",
-}
+_NOT_PORTED = {"devices": "queue 1 item 12 (mesh)"}
 
 
 def parse_args(argv=None):
@@ -91,18 +101,38 @@ def parse_args(argv=None):
                     help="transient shard-read OSError retries before "
                          "giving up (exponential backoff; corruption is "
                          "never retried)")
+    ap.add_argument("--resume", default="", metavar="DIR",
+                    help="checkpoint the fit into DIR and resume a killed "
+                         "run: streaming passes restart at the last "
+                         "completed megabatch boundary and the solver "
+                         "phase at the last completed component/eval "
+                         "boundary")
+    ap.add_argument("--checkpoint-every", type=int, default=16,
+                    help="megabatches between pass checkpoints (with "
+                         "--resume)")
+    ap.add_argument("--pass-deadline-s", type=float, default=None,
+                    metavar="S",
+                    help="wall-clock budget per streaming corpus pass; "
+                         "expiry raises PassDeadlineError at a resumable "
+                         "megabatch boundary")
+    ap.add_argument("--solve-deadline-s", type=float, default=None,
+                    metavar="S",
+                    help="wall-clock budget per lambda-search solve round; "
+                         "expiry raises SolveDeadlineError at a "
+                         "checkpointed eval boundary")
+    ap.add_argument("--export-port", type=int, default=None, metavar="PORT",
+                    help="start the background telemetry exporter and serve "
+                         "/metrics /healthz /varz /tracez on 127.0.0.1 at "
+                         "this port (0 = ephemeral)")
+    ap.add_argument("--export-interval", type=float, default=2.0,
+                    metavar="S",
+                    help="seconds between exporter samples (with "
+                         "--export-port; each interval appends one delta "
+                         "snapshot to --metrics)")
     ap.add_argument("--devices", type=int, default=0,
                     help="(not ported yet)")
-    ap.add_argument("--resume", default="", metavar="DIR",
-                    help="(not ported yet)")
-    ap.add_argument("--pass-deadline-s", type=float, default=None,
-                    metavar="S", help="(not ported yet)")
-    ap.add_argument("--export-port", type=int, default=None, metavar="PORT",
-                    help="(not ported yet)")
     args = ap.parse_args(argv)
-    asked = {"devices": args.devices > 1, "resume": bool(args.resume),
-             "pass_deadline_s": args.pass_deadline_s is not None,
-             "export_port": args.export_port is not None}
+    asked = {"devices": args.devices > 1}
     for name, item in _NOT_PORTED.items():
         if asked[name]:
             ap.exit(2, f"--{name.replace('_', '-')} is not ported yet: "
@@ -110,23 +140,48 @@ def parse_args(argv=None):
     return args
 
 
-def main(argv=None):
-    """Run the launcher; returns ``(corpus, results, diagnostics)``."""
+def main(argv=None, *, on_exporter=None):
+    """Run the launcher; returns ``(corpus, results, diagnostics)``.
+    ``on_exporter``, with ``--export-port``, is called with the started
+    `TelemetryExporter` before the fit (a caller that scrapes the
+    endpoints reads its port there)."""
     args = parse_args(argv)
+    exporter = None
+    if args.export_port is not None:
+        exporter = TelemetryExporter(
+            interval_s=args.export_interval, port=args.export_port,
+            jsonl_path=args.metrics or None,
+            rules=(health.solver_rules() + health.ingestion_rules()
+                   + health.runtime_rules()),
+            extra={"run": "spca_run", "corpus": args.corpus})
     tracer = trace.install(trace.Tracer()) if args.trace else None
     try:
+        if exporter is not None:
+            exporter.start()
+            print(f"telemetry: http://127.0.0.1:{exporter.port}"
+                  "/{metrics,healthz,varz,tracez} "
+                  f"(sampling every {args.export_interval:g}s)")
+            if on_exporter is not None:
+                on_exporter(exporter)
         with profile.trace_device(args.profile_dir or None):
             out = run(args)
     finally:
+        if exporter is not None:
+            exporter.stop()
         if tracer is not None:
             trace.install(None)
     if tracer is not None:
         tracer.dump_chrome_trace(args.trace)
         print(f"trace: {args.trace} (load at ui.perfetto.dev)")
         print(tracer.tree_str(min_s=0.005))
+    if exporter is not None:
+        print(exporter.health().describe())
     if args.metrics:
-        metrics.get_registry().dump_jsonl(
-            args.metrics, extra={"run": "spca_run", "corpus": args.corpus})
+        if exporter is None:
+            # one exit snapshot; with the exporter the file is already a
+            # time series of interval samples, final flush included
+            metrics.get_registry().dump_jsonl(
+                args.metrics, extra={"run": "spca_run", "corpus": args.corpus})
         print(f"metrics: {args.metrics}")
     return out
 
@@ -168,10 +223,14 @@ def streaming_stats(corpus, store_dir, cfg, ingest, device):
         store, chunk_nnz=cfg.chunk_nnz, chunk_rows=cfg.chunk_rows,
         megabatch=cfg.megabatch_chunks, prefetch_depth=cfg.ingest_prefetch,
         impl=cfg.csr_impl, counters=ingest, io_retries=cfg.io_retries,
-        io_backoff_s=cfg.io_backoff_s, device=device)
+        io_backoff_s=cfg.io_backoff_s, resume_dir=cfg.resume_dir,
+        checkpoint_every=cfg.checkpoint_every,
+        pass_deadline_s=cfg.pass_deadline_s, device=device)
+    resumed = ingest.get("resumed_megabatches", 0)
     print(f"  out-of-core variance screen: {time.time() - t0:.1f}s "
           f"(one pass over {store.nnz} nnz, "
-          f"{ingest.get('screen_launches', 0)} megabatch launch(es))")
+          f"{ingest.get('screen_launches', 0)} megabatch launch(es)"
+          + (f", resumed {resumed} megabatch(es)" if resumed else "") + ")")
     return var, build
 
 
@@ -195,7 +254,11 @@ def run(args):
                      megabatch_chunks=args.megabatch,
                      batch_evals=args.batch_evals,
                      io_retries=args.io_retries,
-                     solver_fallback=not args.no_solver_fallback)
+                     resume_dir=args.resume or None,
+                     checkpoint_every=args.checkpoint_every,
+                     solver_fallback=not args.no_solver_fallback,
+                     pass_deadline_s=args.pass_deadline_s,
+                     solve_deadline_s=args.solve_deadline_s)
     ingest: dict = {}
     with contextlib.ExitStack() as stack:
         if args.streaming:
@@ -232,13 +295,27 @@ def run(args):
               f"{1 + args.components}), ingest launches: "
               f"{ingest.get('screen_launches', 0) + ingest.get('gram_launches', 0)} "
               f"over {ingest.get('chunks', 0)} chunk(s)")
-        diag.update(ingest=dict(ingest), corpus_passes=passes)
-    if ingest.get("io_retries"):
-        print(f"reliability: absorbed {ingest['io_retries']} transient "
-              "read error(s)")
+        diag.update(ingest=dict(ingest), corpus_passes=passes,
+                    resumed_megabatches=ingest.get("resumed_megabatches", 0))
+    extras = []
+    if ingest.get("resumed_megabatches"):
+        extras.append(f"resumed {ingest['resumed_megabatches']} "
+                      "megabatch(es) from checkpoint")
+    fr = diag.get("fit_resume") or {}
+    if fr.get("components_restored"):
+        extras.append(f"restored {fr['components_restored']} completed "
+                      "component(s) from fit checkpoint")
+    if fr.get("evals_skipped"):
+        extras.append(f"skipped {fr['evals_skipped']} already-solved "
+                      "lambda eval(s)")
     if diag.get("solver_fallbacks"):
-        print(f"reliability: took {diag['solver_fallbacks']} solver "
-              "fallback(s) to the oracle path")
+        extras.append(f"took {diag['solver_fallbacks']} solver "
+                      "fallback(s) to the oracle path")
+    if ingest.get("io_retries"):
+        extras.append(f"absorbed {ingest['io_retries']} transient "
+                      "read error(s)")
+    if extras:
+        print("reliability: " + "; ".join(extras))
     return corpus, results, diag
 
 

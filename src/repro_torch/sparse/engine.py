@@ -25,10 +25,17 @@ pair `core.spca` drives the lambda search with; its cross-component
 covariance cache calls ``build`` ONCE per fit, so a
 K-component fit costs 1 + 1 corpus passes.
 
-Pass checkpoints (``resume_dir``) and the pass watchdog
-(``pass_deadline_s``) are not ported yet (ROADMAP queue 1 item 8): the
-arguments are kept, and setting one raises `NotImplementedError`
-(``checkpoint_every`` comes with them).
+Resume (``resume_dir``): each pass checkpoints its accumulator state and
+its megabatch cursor every ``checkpoint_every`` megabatches and once
+more, ``complete``, at its end (`sparse.resume.PassCheckpointer`); a
+killed pass run again with the same arguments loads the newest
+checkpoint and starts at its boundary, so completed megabatches are
+never re-streamed and the remaining ones fold in the uninterrupted
+pass's order: the resumed moments equal the uninterrupted ones bit for
+bit.  ``pass_deadline_s`` arms a cooperative watchdog
+(`obs.health.Watchdog`) checked at each megabatch boundary after the
+checkpoint cadence, so an expired pass raises `obs.health.
+PassDeadlineError` at a boundary it can resume from.
 
 ``acc_dtype`` stands in for the reference's global x64 flag.  float32
 (the default) is the reference launcher's arithmetic, x64 off: the
@@ -46,20 +53,12 @@ from ..core.elimination import Screen, combine_screens, select_support
 from ..data.bow import StreamingGram, StreamingStats
 from ..data.pipeline import prefetch
 from ..device import resolve
-from ..obs import metrics, trace
+from ..obs import health, metrics, trace
+from .resume import DEFAULT_CHECKPOINT_EVERY, PassCheckpointer, pass_fingerprint
 from .store import DEFAULT_CHUNK_NNZ, DEFAULT_CHUNK_ROWS, SparseCorpus
 
 DEFAULT_MEGABATCH = 8
 DEFAULT_PREFETCH = 2
-
-
-def _not_ported(resume_dir, pass_deadline_s) -> None:
-    for name, on in (("resume_dir", resume_dir),
-                     ("pass_deadline_s", pass_deadline_s is not None)):
-        if on:
-            raise NotImplementedError(
-                f"{name} (pass checkpoints / watchdog) is not ported yet: "
-                "ROADMAP queue 1 item 8 (reliability)")
 
 
 def _bump(counters: dict | None, **deltas) -> None:
@@ -104,7 +103,9 @@ def _stream_prefetch_stats(pstats: dict, prev: dict) -> None:
 
 
 def _drain(store: SparseCorpus, acc, *, chunk_nnz, chunk_rows, megabatch,
-           prefetch_depth, host_id, num_hosts, counters, launch_key):
+           prefetch_depth, host_id, num_hosts, counters, launch_key,
+           checkpointer: PassCheckpointer | None = None, kind: str = "",
+           pass_deadline_s: float | None = None):
     """One streaming pass of ``acc`` over this host's shard slice: packed
     megabatches, prefetched ``prefetch_depth`` batches ahead, one launch
     per batch.  Each megabatch gets an ``ingest.megabatch`` span (synced
@@ -112,24 +113,85 @@ def _drain(store: SparseCorpus, acc, *, chunk_nnz, chunk_rows, megabatch,
     not only its launch); transient-read retries absorbed by the store
     land in ``counters['io_retries']``; the prefetch queue's stall
     accounting lands in ``counters`` and ``ingest.prefetch.*`` (consumer
-    stall: the pass is read-bound; producer stall: reduce-bound)."""
+    stall: the pass is read-bound; producer stall: reduce-bound).
+
+    Resume (``checkpointer``): the pass loads the newest checkpoint whose
+    fingerprint matches (store identity, chunk geometry, host slice,
+    accumulator signature), restores the summed state to the device
+    unchanged, and starts the store's iterator at the saved megabatch
+    boundary.  It re-publishes state and cursor every
+    ``checkpointer.every`` megabatches (an ``ingest.resume.checkpoint``
+    span each) and once more with ``complete=True`` at its end, so a kill
+    between passes resumes the finished pass with zero streaming.  Resume
+    events count ``ingest.resume.*`` and ``counters['resumed_megabatches']``
+    / ``counters['resume_checkpoints']``.
+
+    ``pass_deadline_s`` arms a `health.Watchdog` checked at every
+    megabatch boundary AFTER the checkpoint cadence.  Whatever ends the
+    pass early (the watchdog, a read error re-raised from the prefetch
+    thread), the prefetch thread is stopped and the device synchronized
+    before the exception leaves: no launch of this pass outlives it, and
+    a pass resumed in the same process finds the kernels' workspaces at
+    rest."""
+    wd = None
+    if pass_deadline_s is not None:
+        wd = health.Watchdog(pass_deadline_s, what=f"{kind or launch_key} pass",
+                             exc=health.PassDeadlineError)
+    start_batch = 0
+    fp = None
+    if checkpointer is not None:
+        fp = pass_fingerprint(
+            kind or launch_key, store, chunk_nnz=chunk_nnz,
+            chunk_rows=chunk_rows, megabatch=megabatch, host_id=host_id,
+            num_hosts=num_hosts, signature=acc.state_signature())
+        hit = checkpointer.load(fp)
+        if hit is not None:
+            cursor, state, _complete = hit
+            acc.load_state(state)
+            start_batch = cursor
+            metrics.counter("ingest.resume.loads").inc()
+            metrics.counter("ingest.resume.megabatches_skipped").inc(cursor)
+            _count(counters, "resumed_megabatches", cursor)
     retries0 = getattr(store, "io_retry_count", 0)
     it = store.iter_megabatches(
         chunk_nnz=chunk_nnz, chunk_rows=chunk_rows, megabatch=megabatch,
         host_id=host_id, num_hosts=num_hosts,
-        ring=max(2, prefetch_depth + 2))
+        ring=max(2, prefetch_depth + 2), start_batch=start_batch)
     pstats: dict = {}
     pprev: dict = {}
     if prefetch_depth > 0:
         it = prefetch(it, size=prefetch_depth, stats=pstats)
-    for mb in it:
-        with trace.span("ingest.megabatch", kind=launch_key,
-                        chunks=int(mb.n_chunks)):
-            acc.update_csr_batch(mb)
-            trace.device_sync(tuple(getattr(acc, f)
-                                    for f in acc._acc_fields))
-        _bump(counters, **{launch_key: 1, "chunks": mb.n_chunks})
-        _stream_prefetch_stats(pstats, pprev)
+    done = start_batch
+    try:
+        for mb in it:
+            with trace.span("ingest.megabatch", kind=launch_key,
+                            chunks=int(mb.n_chunks)):
+                acc.update_csr_batch(mb)
+                trace.device_sync(tuple(getattr(acc, f)
+                                        for f in acc._acc_fields))
+            _bump(counters, **{launch_key: 1, "chunks": mb.n_chunks})
+            _stream_prefetch_stats(pstats, pprev)
+            done += 1
+            if checkpointer is not None and done % checkpointer.every == 0:
+                with trace.span("ingest.resume.checkpoint", kind=launch_key,
+                                cursor=done):
+                    # state_dict's copies to the host wait for the launches
+                    checkpointer.save(fp, done, acc.state_dict())
+                metrics.counter("ingest.resume.checkpoints").inc()
+                _count(counters, "resume_checkpoints", 1)
+            if wd is not None:
+                wd.check()
+    except BaseException:
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()
+        if acc.device.type == "cuda":
+            torch.cuda.synchronize(acc.device)
+        raise
+    if checkpointer is not None:
+        checkpointer.save(fp, done, acc.state_dict(), complete=True)
+        metrics.counter("ingest.resume.checkpoints").inc()
+        _count(counters, "resume_checkpoints", 1)
     dr = getattr(store, "io_retry_count", 0) - retries0
     if dr:
         _count(counters, "io_retries", dr)
@@ -142,9 +204,15 @@ def _drain(store: SparseCorpus, acc, *, chunk_nnz, chunk_rows, megabatch,
     return acc
 
 
-def _io_policy(store: SparseCorpus, io_retries, io_backoff_s) -> None:
+def _reliability(store: SparseCorpus, io_retries, io_backoff_s, resume_dir,
+                 checkpoint_every) -> PassCheckpointer | None:
+    """Apply the pass-level reliability knobs: the retry policy onto the
+    store handle, and a `PassCheckpointer` when a resume root is given."""
     if io_retries is not None or io_backoff_s is not None:
         store.set_io_policy(io_retries=io_retries, io_backoff_s=io_backoff_s)
+    if not resume_dir:
+        return None
+    return PassCheckpointer(resume_dir, every=checkpoint_every)
 
 
 def sparse_feature_variances(
@@ -161,6 +229,7 @@ def sparse_feature_variances(
     io_retries: int | None = None,
     io_backoff_s: float | None = None,
     resume_dir: str | None = None,
+    checkpoint_every: int = DEFAULT_CHECKPOINT_EVERY,
     pass_deadline_s: float | None = None,
     acc_dtype=torch.float32,
     device=None,
@@ -171,8 +240,8 @@ def sparse_feature_variances(
     ``num_hosts > 1`` emulates the multi-host layout in one process: each
     host slice reduces its own shards into a partial Screen, pooled
     through `combine_screens`."""
-    _not_ported(resume_dir, pass_deadline_s)
-    _io_policy(store, io_retries, io_backoff_s)
+    ckpt = _reliability(store, io_retries, io_backoff_s, resume_dir,
+                        checkpoint_every)
     device = resolve(device)
     partials = []
     with trace.span("ingest.screen_pass", nnz=int(store.nnz),
@@ -182,7 +251,8 @@ def sparse_feature_variances(
             _drain(store, acc, chunk_nnz=chunk_nnz, chunk_rows=chunk_rows,
                    megabatch=megabatch, prefetch_depth=prefetch_depth,
                    host_id=h, num_hosts=num_hosts, counters=counters,
-                   launch_key="screen_launches")
+                   launch_key="screen_launches", checkpointer=ckpt,
+                   kind="screen", pass_deadline_s=pass_deadline_s)
             partials.append(acc.finalize(center=center, dtype=acc_dtype))
         _bump(counters, screen_passes=1)
         if len(partials) == 1:
@@ -205,6 +275,7 @@ def sparse_reduced_covariance(
     io_retries: int | None = None,
     io_backoff_s: float | None = None,
     resume_dir: str | None = None,
+    checkpoint_every: int = DEFAULT_CHECKPOINT_EVERY,
     pass_deadline_s: float | None = None,
     acc_dtype=torch.float32,
     device=None,
@@ -213,8 +284,8 @@ def sparse_reduced_covariance(
     ``means`` is given) on the surviving columns, straight from chunks, as
     an ``acc_dtype`` tensor on ``device``.  The host slices' partial Grams
     pool on the device; `finalize` is the one host transfer."""
-    _not_ported(resume_dir, pass_deadline_s)
-    _io_policy(store, io_retries, io_backoff_s)
+    ckpt = _reliability(store, io_retries, io_backoff_s, resume_dir,
+                        checkpoint_every)
     device = resolve(device)
     support = np.asarray(support)
     accs = []
@@ -226,7 +297,8 @@ def sparse_reduced_covariance(
             _drain(store, acc, chunk_nnz=chunk_nnz, chunk_rows=chunk_rows,
                    megabatch=megabatch, prefetch_depth=prefetch_depth,
                    host_id=h, num_hosts=num_hosts, counters=counters,
-                   launch_key="gram_launches")
+                   launch_key="gram_launches", checkpointer=ckpt,
+                   kind="gram", pass_deadline_s=pass_deadline_s)
             accs.append(acc)
         _bump(counters, gram_passes=1)
         acc = accs[0]
@@ -256,6 +328,7 @@ def sparse_stats(
     io_retries: int | None = None,
     io_backoff_s: float | None = None,
     resume_dir: str | None = None,
+    checkpoint_every: int = DEFAULT_CHECKPOINT_EVERY,
     pass_deadline_s: float | None = None,
     acc_dtype=torch.float32,
     device=None,
@@ -269,6 +342,7 @@ def sparse_stats(
               megabatch=megabatch, prefetch_depth=prefetch_depth,
               num_hosts=num_hosts, counters=counters, io_retries=io_retries,
               io_backoff_s=io_backoff_s, resume_dir=resume_dir,
+              checkpoint_every=checkpoint_every,
               pass_deadline_s=pass_deadline_s, device=device)
     screen = sparse_feature_variances(store, center=center,
                                       acc_dtype=acc_dtype, **kw)
@@ -298,6 +372,7 @@ def screen_and_gram_sparse(
     io_retries: int | None = None,
     io_backoff_s: float | None = None,
     resume_dir: str | None = None,
+    checkpoint_every: int = DEFAULT_CHECKPOINT_EVERY,
     pass_deadline_s: float | None = None,
     acc_dtype=torch.float32,
     device=None,
@@ -308,6 +383,7 @@ def screen_and_gram_sparse(
               megabatch=megabatch, prefetch_depth=prefetch_depth,
               num_hosts=num_hosts, counters=counters, io_retries=io_retries,
               io_backoff_s=io_backoff_s, resume_dir=resume_dir,
+              checkpoint_every=checkpoint_every,
               pass_deadline_s=pass_deadline_s, device=device)
     screen = sparse_feature_variances(store, center=center,
                                       acc_dtype=acc_dtype, **kw)

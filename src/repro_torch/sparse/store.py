@@ -102,10 +102,10 @@ class ShardCorruptionError(RuntimeError):
 class _FileIO:
     """The ONE seam every store read/write goes through.
 
-    A fault injector (the reference's `testing.faults.FaultInjector`;
-    ROADMAP queue 1 item 8 ports it) subclasses this and is swapped in to
-    inject deterministic failures; production code never touches files
-    except through the module-level ``FILE_IO``.
+    A fault injector (`repro_torch.testing.faults.FaultInjector`)
+    subclasses this and is swapped in to inject deterministic failures;
+    production code never touches store files except through the
+    module-level ``FILE_IO``.
     """
 
     def load_array(self, path: str, *, mmap_mode: str | None = None):
@@ -569,9 +569,8 @@ class SparseCorpus:
         """Internal: (vals_mmap, cols_mmap, row_ptr, row_offset, r, stop)
         per chunk, in deterministic shard-then-row order, off the cached
         plan.  ``start_chunk`` fast-skips the first chunks of this host's
-        slice WITHOUT opening the skipped shards — a resumed pass costs
-        only the remaining reads (the reference's ``sparse/resume.py``;
-        ROADMAP queue 1 item 8)."""
+        slice WITHOUT opening the skipped shards — a resumed pass
+        (`sparse.resume`) costs only the remaining reads."""
         plan = self.chunk_plan(chunk_nnz, chunk_rows)
         shards = self.manifest["shards"]
         if not (0 <= host_id < num_hosts):

@@ -77,13 +77,66 @@ def test_registry_rerun_extends_history(tmp_path, capsys):
     assert out["version"].version == 1
 
 
-@pytest.mark.parametrize("flag", [["--export-port", "0"],
-                                  ["--export-interval", "2"]])
-def test_unported_flags_exit_naming_roadmap_item(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        serve_topics.parse_args(["--smoke", "--device", "cpu"] + flag)
-    assert e.value.code == 2
-    assert "ROADMAP queue 1 item 10" in capsys.readouterr().err
+def test_export_port_serves_metrics_healthz_and_varz(capsys):
+    """``--export-port 0``: /metrics, /healthz and /varz answer 200 on
+    127.0.0.1 while the launcher serves, the serving rules quiet; the K4
+    launch counter on /metrics after the run equals the projector's
+    launches (batches + 2 warm-ups), and the shifted stream's drift flag
+    leaves the exporter degraded (a warning, still 200)."""
+    import json
+    import re
+    import threading
+    import urllib.request
+
+    from repro_torch.obs import metrics
+
+    rows, stop, box = [], threading.Event(), {}
+
+    def scrape(exp):
+        def loop():
+            while not stop.is_set():
+                row = {}
+                for path in ("/metrics", "/healthz", "/varz"):
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{exp.port}{path}",
+                            timeout=10) as r:
+                        row[path] = (r.status, r.read().decode())
+                rows.append(row)
+                stop.wait(0.05)
+
+        t = threading.Thread(target=loop, daemon=True)
+        orig_stop = exp.stop
+
+        def stop_scraper_first():
+            stop.set()
+            t.join(timeout=30)
+            orig_stop()
+
+        exp.stop = stop_scraper_first
+        box["exp"] = exp
+        t.start()
+
+    with metrics.use_registry():
+        out = serve_topics.main(["--smoke", "--device", "cpu", "--docs",
+                                 "800", "--words", "600", "--components", "1",
+                                 "--queries", "1000", "--export-port", "0",
+                                 "--export-interval", "0.05"],
+                                on_exporter=scrape)
+    exp = box["exp"]
+    assert rows and exp.port is None
+    assert all(r[p][0] == 200 for r in rows for p in r)
+    serving = {"serve_p99_latency", "serve_shed_burst", "serve_timeout_burst"}
+    for r in rows:
+        fired = {f["rule"] for f in json.loads(r["/healthz"][1])["firing"]}
+        assert not fired & serving, fired
+    varz = json.loads(rows[-1]["/varz"][1])
+    assert varz["labels"] == {"run": "serve_topics"}
+    text = exp.prometheus_text()
+    m = re.search(r"^kernel_launches_sparse_project_total (\d+)$", text, re.M)
+    assert int(m.group(1)) == sum(out["batches"]) + out["warmups"]
+    assert exp.health().http_status == 200
+    assert "serve_drift" in {f.rule for f in exp.health().firing}
+    assert "health: degraded" in capsys.readouterr().out
 
 
 def test_trace_and_metrics_outputs(tmp_path, capsys):

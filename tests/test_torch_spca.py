@@ -2,6 +2,7 @@
 the same corpus and the same ``stats=`` pair in both packages, float64.
 Supports must be identical, explained variance within 1e-6 (the bar the
 reference's own driver tests use), lambdas and launch counts equal."""
+import os
 from dataclasses import asdict
 
 import jax.numpy as jnp
@@ -127,9 +128,7 @@ def test_corpus_copy_is_bit_identical():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("resume_dir", "/nonexistent"), ("mesh_devices", 2),
-    ("lam_grid_probe", 4), ("solve_deadline_s", 1.0),
-    ("pass_deadline_s", 1.0),
+    ("mesh_devices", 2), ("lam_grid_probe", 4),
 ])
 def test_unported_config_fields_raise(field, value):
     cfg = TConfig(**{field: value})
@@ -144,23 +143,24 @@ def test_unknown_qp_impl_is_a_value_error():
 
 
 def test_store_handle_raises_not_ported(tmp_path):
-    """A store handle fits out of core since the streaming slice (ROADMAP
-    queue 1 item 7); what it still refuses, naming the item that ports
-    it, is the pass checkpoints and the pass watchdog (item 8)."""
-    from repro_torch.core import spca
+    """A store handle fits out of core, with pass and fit checkpoints and
+    the pass watchdog since the reliability slice (ROADMAP queue 1 item
+    8); what it still refuses, naming the item that ports it, is the
+    device mesh (item 12)."""
     from repro_torch.sparse import write_corpus
 
     store = write_corpus(tcorpus.make_corpus(300, 400, seed=1),
                          str(tmp_path / "s"))
-    for bad in (dict(pass_deadline_s=5.0), dict(resume_dir=str(tmp_path))):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tfit(store, 1, cfg=TConfig(**bad), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 8"):
-            spca._as_stats(store, False, True, "cpu", TConfig(**bad))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tfit(store, 1, cfg=TConfig(mesh_devices=2), device="cpu")
     diag = {}
+    rd = str(tmp_path / "ckpt")
     pcs = tfit(store, 1, target_card=3, diagnostics=diag, device="cpu",
-               cfg=TConfig(max_sweeps=3, lam_search_evals=3))
+               cfg=TConfig(max_sweeps=3, lam_search_evals=3, resume_dir=rd,
+                           pass_deadline_s=600.0, solve_deadline_s=600.0))
     assert pcs[0].cardinality > 0 and diag["corpus_passes"] == 2
+    kinds = sorted(name.rsplit("_", 1)[0] for name in os.listdir(rd))
+    assert kinds == ["fit", "pass_gram", "pass_screen"]
 
 
 def test_convert_from_reference_state():

@@ -39,9 +39,7 @@ def test_launchers_print_the_same_components(monkeypatch, capsys):
     assert got == want
 
 
-@pytest.mark.parametrize("flag", [["--pass-deadline-s", "60"],
-                                  ["--devices", "2"], ["--resume", "ckpt"],
-                                  ["--export-port", "0"]])
+@pytest.mark.parametrize("flag", [["--devices", "2"]])
 def test_unported_launcher_flags_exit_with_roadmap_item(flag, capsys):
     with pytest.raises(SystemExit) as ei:
         trun.main([*ARGS, *flag])
@@ -81,3 +79,89 @@ def test_streaming_launchers_agree(monkeypatch, capsys, tmp_path):
     ing = diag["ingest"]
     assert ing["screen_launches"] == ing["gram_launches"] == 11
     assert ing["chunks"] == 2 * 88
+
+
+STREAM = ["--streaming", "--device", "cpu", "--docs", "2000", "--words",
+          "3000", "--components", "2"]
+
+
+def _supports(results):
+    return [r.support.tolist() for r in results]
+
+
+def test_streaming_fit_killed_by_a_read_fault_resumes(tmp_path, capsys):
+    """The launcher with ``--store-dir S --resume R``, killed by an injected
+    read fault in its Gram pass (no retries), then run again: the second
+    run resumes the finished screen pass from its checkpoint, prints
+    "resumed N megabatch(es)" with N > 0, streams only the Gram pass, and
+    gives the supports of an uninterrupted run (and its lambdas and
+    variances, exactly: the same arithmetic in the same order)."""
+    from repro_torch.testing import (
+        FaultInjector, fail_nth_read, install, slow_read)
+
+    args = STREAM + ["--store-dir", str(tmp_path / "S"), "--resume",
+                     str(tmp_path / "R"), "--checkpoint-every", "1",
+                     "--io-retries", "0"]
+    # each pass reads each shard's values file once (this store has one
+    # shard): the second such read is the Gram pass's first
+    probe = FaultInjector(slow_read(0.0, match="*.values.npy"))
+    with install(probe):
+        _, clean, d0 = trun.main(args[:-6])
+    assert probe.injected["slow"] == 2
+    kill = FaultInjector(fail_nth_read(1, match="*.values.npy",
+                                       times=10**9))
+    capsys.readouterr()
+    with install(kill), pytest.raises(OSError, match="injected"):
+        trun.main(args)
+    assert kill.injected["read_fail"] == 1
+    _, resumed, d1 = trun.main(args)
+    out = capsys.readouterr().out
+    m = re.search(r"resumed (\d+) megabatch\(es\)", out)
+    assert m and int(m.group(1)) > 0, out
+    assert "reliability: resumed" in out
+    assert d1["ingest"]["chunks"] < d0["ingest"]["chunks"]
+    assert d1["resumed_megabatches"] == int(m.group(1))
+    assert _supports(resumed) == _supports(clean)
+    assert [(r.lam, r.variance) for r in resumed] \
+        == [(r.lam, r.variance) for r in clean]
+
+
+def test_export_port_serves_metrics_and_healthz(capsys):
+    import json
+    import urllib.request
+
+    seen = {}
+
+    def scrape(exp):
+        for path in ("/metrics", "/healthz"):
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{exp.port}{path}", timeout=10) as r:
+                seen[path] = (r.status, r.read().decode())
+        seen["exp"] = exp
+
+    from repro_torch.obs import metrics
+
+    with metrics.use_registry():      # the health rules read this run only
+        _, results, _ = trun.main([*ARGS, "--device", "cpu", "--export-port",
+                                   "0", "--export-interval", "0.05"],
+                                  on_exporter=scrape)
+    out = capsys.readouterr().out
+    assert re.search(r"telemetry: http://127\.0\.0\.1:\d+/", out)
+    assert seen["/metrics"][0] == 200 and seen["/healthz"][0] == 200
+    assert json.loads(seen["/healthz"][1])["rules_evaluated"] == len(
+        seen["exp"].engine.rules) > 0
+    # after the fit the exporter's final sample carries the solver counters
+    text = seen["exp"].prometheus_text()
+    assert re.search(r"^search_evals_total \d+$", text, re.M)
+    assert "health: " in out and seen["exp"].port is None
+    assert len(results) == 2
+
+
+def test_deadline_flags_reach_the_fit(tmp_path):
+    from repro_torch.obs.health import PassDeadlineError, SolveDeadlineError
+
+    with pytest.raises(SolveDeadlineError):
+        trun.main([*ARGS, "--device", "cpu", "--solve-deadline-s", "0"])
+    with pytest.raises(PassDeadlineError):
+        trun.main([*STREAM, "--pass-deadline-s", "0", "--resume",
+                   str(tmp_path / "R")])

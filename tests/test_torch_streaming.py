@@ -288,12 +288,37 @@ def test_multi_host_screen_pools_like_reference(store):
     assert ctr["chunks"] == s.n_chunks(**GEOM)
 
 
-def test_resume_and_deadline_are_not_ported_yet(store):
-    _, s = store
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tengine.sparse_stats(s, resume_dir="ckpt", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tengine.sparse_feature_variances(s, pass_deadline_s=5.0, device="cpu")
+def test_resume_counters_equal_reference(store, tmp_path):
+    """Both packages' ``sparse_stats`` with a resume root: the same
+    checkpoint tallies on a clean run, and on a re-run the same resumed
+    megabatches with zero chunks streamed, the results unchanged."""
+    corpus, s = store
+    kw = dict(megabatch=C, checkpoint_every=3, **GEOM)
+    support = _support(corpus, 50)
+    runs = {}
+    for name, eng, extra in (
+            ("ref", jengine, {}),
+            ("port", tengine, dict(device="cpu", acc_dtype=torch.float64))):
+        rd = str(tmp_path / name)
+        got = []
+        for _ in range(2):
+            ctr = {}
+            var, build = eng.sparse_stats(s, counters=ctr, resume_dir=rd,
+                                          **kw, **extra)
+            S = build(support)
+            got.append((ctr, np.asarray(var), np.asarray(S)))
+        runs[name] = got
+    for i in range(2):
+        (tc, tv, tS), (jc, jv, jS) = runs["port"][i], runs["ref"][i]
+        ints = {k: v for k, v in jc.items() if not k.startswith("prefetch_")}
+        assert {k: tc.get(k) for k in ints} == ints
+        _rel(tv, jv, 1e-12)
+        _rel(tS, jS, 1e-6)
+    second = runs["port"][1][0]
+    assert second.get("chunks", 0) == 0
+    assert second["resumed_megabatches"] == 2 * -(-s.n_chunks(**GEOM) // C)
+    np.testing.assert_array_equal(runs["port"][1][1], runs["port"][0][1])
+    np.testing.assert_array_equal(runs["port"][1][2], runs["port"][0][2])
 
 
 def test_fit_from_store_is_two_passes_with_reference_supports(store):
