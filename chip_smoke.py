@@ -56,7 +56,22 @@ words, 5 components, target cardinality 5):
 * live telemetry (``export``): the serving launcher with
   ``--export-port 0``, ``/metrics``, ``/healthz`` and ``/varz`` scraped
   while it serves and just before it stops; K4's count on ``/metrics``
-  equal to its launches, docs/s beside the run without the exporter.
+  equal to its launches, docs/s beside the run without the exporter;
+* the lambda-grid probe (``grid_probe``): the dense fit with
+  ``lam_grid_probe=8``, one K1 launch a search, against the dense record,
+  and K1's grid against its plain version on component 1's probe;
+* the lane mesh, on lanes forced onto the card
+  (``REPRO_TORCH_FORCE_LANES``, set in this process only): the device
+  grid (``device_grid``: ``solve_bcd_many`` on the dense fit's problems
+  at 4 lanes equal to one launch bit for bit, one K1 launch a lane), the
+  300k store's passes at D 4 beside the engine's (58 + 58 dispatches, one
+  K2 or K3 launch a lane, repeated bit for bit), ``spca_run --streaming
+  --devices 4`` against the streaming record, the degrade ladder, a mesh
+  pass killed and resumed, and what concurrent K2 and K3 launches on four
+  streams do (``mesh_*``);
+* the baselines (``baselines``): the first-order method's sandwich
+  around the BCD solve, the power iteration against ``eigh``, and the
+  dense pooled statistics on 4 lanes against 1.
 
 Each phase prints one JSON line; a failed check raises, so the script
 exits non-zero.  The last lines are the kernel table, the card's name
@@ -2397,6 +2412,561 @@ def phase_serve_split(mv, queries):
          share={key: v / total for key, v in per_batch_ms.items()})
 
 
+# ------------------------------------------------------------ the lane mesh
+
+
+def _kernel_intervals(prof, name):
+    """(start_us, end_us, stream) of each device kernel whose name holds
+    ``name`` in a torch.profiler run, from its Chrome trace."""
+    with tempfile.NamedTemporaryFile(suffix=".json") as f:
+        prof.export_chrome_trace(f.name)
+        events = json.load(open(f.name)).get("traceEvents", [])
+    return sorted((e["ts"], e["ts"] + e.get("dur", 0),
+                   e.get("args", {}).get("stream", e.get("tid")))
+                  for e in events
+                  if e.get("cat") == "kernel" and name in e.get("name", ""))
+
+
+def _overlap(intervals):
+    """How many kernels ran while another (on another stream) ran."""
+    hit = 0
+    for i, (a0, a1, sa) in enumerate(intervals):
+        if any(b0 < a1 and a0 < b1 and sb != sa
+               for j, (b0, b1, sb) in enumerate(intervals) if j != i):
+            hit += 1
+    return hit
+
+
+class _forced_lanes:
+    """``REPRO_TORCH_FORCE_LANES`` set in this process for a block."""
+
+    def __init__(self, n):
+        from repro_torch.launch.mesh import FORCE_LANES_ENV
+
+        self.key, self.n = FORCE_LANES_ENV, str(n)
+
+    def __enter__(self):
+        self.prev = os.environ.get(self.key)
+        os.environ[self.key] = self.n
+
+    def __exit__(self, *exc):
+        if self.prev is None:
+            os.environ.pop(self.key, None)
+        else:
+            os.environ[self.key] = self.prev
+
+
+def phase_grid_probe(record, corpus):
+    """The dense fit (the ``fit`` phase's config) with the lambda-grid
+    probe (``lam_grid_probe=8``): every search first solves 8 lambdas on
+    its probe support in ONE `bcd.solve_bcd_grid` call, one K1 launch.
+    Held to the dense record's supports; per component the probe's n, its
+    K1 launches and K1's device ms, and the evaluations with and without
+    the probe (the fit without it on the same clock).  K1's grid is then
+    held to its plain version (``impl='fused_ref'``, on the host) on
+    component 1's probe inputs, at the first and last lambda of the grid:
+    equal cards, F to 1e-4 relative (the fit-shape bar), |dX| printed."""
+    import torch
+
+    from repro_torch.core import bcd
+    from repro_torch.kernels import bcd_fused
+
+    t_phase = time.perf_counter()
+    _, d0 = _fit_direct(corpus, "auto")
+    plain_s = time.perf_counter() - t_phase
+    real = bcd.solve_bcd_grid
+    calls = []
+
+    def probe(Sigma, lams, **kw):
+        k0 = bcd_fused.launches
+        out = real(Sigma, lams, **kw)
+        calls.append({"Sigma": Sigma, "lams": list(lams), "kw": kw,
+                      "k1_launches": bcd_fused.launches - k0,
+                      "sweeps": out.sweeps.tolist()})
+        return out
+
+    bcd.solve_bcd_grid = probe
+    try:
+        bcd_fused.reset_launches()
+        t0 = time.perf_counter()
+        results, diag = _fit_direct(corpus, "auto", lam_grid_probe=8)
+        probe_s = time.perf_counter() - t0
+        k1 = bcd_fused.launches
+    finally:
+        bcd.solve_bcd_grid = real
+    comps = []
+    for k, (c, dp, dn) in enumerate(zip(calls, diag["components"],
+                                        d0["components"])):
+        dev = device_ms(lambda: real(c["Sigma"], c["lams"], **c["kw"]),
+                        reps=1, kernel="bcd_fused")
+        comps.append({"k": k, "probe_n": int(c["Sigma"].shape[0]),
+                      "probe_k1_launches": c["k1_launches"],
+                      "probe_k1_device_ms": dev,
+                      "probe_sweeps": c["sweeps"],
+                      "evals_with_probe": dp["evals"],
+                      "evals_without": dn["evals"],
+                      "solve_launches": dp["solve_launches"]})
+    c = calls[0]
+    kw = {**c["kw"], "impl": "fused"}
+    ends = [c["lams"][0], c["lams"][-1]]
+    got = real(c["Sigma"], ends, **kw)
+    t0 = time.perf_counter()
+    want = real(c["Sigma"].cpu(), ends, **{**kw, "impl": "fused_ref"})
+    plain_hold_s = time.perf_counter() - t0
+    cards = [[int(torch.count_nonzero(bcd.leading_sparse_component(
+        r.Z[i].cpu()))) for i in range(len(ends))] for r in (got, want)]
+    dF = float((got.kernel_obj.cpu() - want.kernel_obj).abs().max())
+    Fmax = float(want.kernel_obj.abs().max())
+    hold = {"lams": ends, "n": int(c["Sigma"].shape[0]), "cards": cards[0],
+            "plain_cards": cards[1], "max_abs_dX": float(
+                (got.X.cpu() - want.X).abs().max()), "max_abs_dF": dF,
+            "sweeps": got.sweeps.tolist(),
+            "plain_sweeps": want.sweeps.tolist(),
+            "plain_s": plain_hold_s}
+    emit("grid_probe", phase_seconds=time.perf_counter() - t_phase,
+         seconds=probe_s, seconds_without_probe=plain_s,
+         k1_launches=k1, probe_calls=len(calls), components=comps,
+         vs_record=_vs_record(results, record["fit"]), hold=hold)
+    check(_same_supports(results, record["fit"]),
+          "grid_probe: the fit with the probe differs from the dense record")
+    check(len(calls) == 5 and all(x["k1_launches"] == 1 for x in calls),
+          "grid_probe: a probe was not ONE K1 launch")
+    check(all(d["solve_launches"] == d["evals"] + 1
+              for d in diag["components"]),
+          "grid_probe: solve launches != evals + 1")
+    check(cards[0] == cards[1] and dF <= 1e-4 * (1 + Fmax),
+          "grid_probe: K1's grid disagrees with its plain version")
+    return {"k1": k1, "probe_k1": sum(x["k1_launches"] for x in calls)}
+
+
+def phase_device_grid(corpus, results):
+    """`solve_bcd_many` on the dense fit's problems (its five components'
+    Sigma_hat at their lambdas, n_hat 48-192: B 5; and three more at 0.8x
+    the first three lambdas: B 8) with ``devices=4`` on four forced lanes
+    of the card, against ``devices=0``: X, obj, sweeps and history must
+    differ by exactly 0; the registry counts ONE batched dispatch, K1's
+    own count one launch a lane, and the profiler four K1 records;
+    ``devices=8`` clamps to the four lanes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import bcd
+    from repro_torch.kernels import bcd_fused
+    from repro_torch.launch.spca_run import dense_stats
+    from repro_torch.obs import metrics
+
+    t_phase = time.perf_counter()
+    build = dense_stats(corpus, torch.device("cuda"))[1]
+    Sigmas = [build(r.reduced_support) for r in results]
+    lams = [r.lam for r in results]
+    cases = {"B5": (Sigmas, lams),
+             "B8": (Sigmas + Sigmas[:3], lams + [0.8 * x for x in lams[:3]])}
+    kw = dict(max_sweeps=8, qp_sweeps=4, tau_iters=80, tol=1e-7)
+    rows, k1_total = [], 0
+    with _forced_lanes(4):
+        for label, (S, L) in cases.items():
+            one = bcd.solve_bcd_many(S, L, **kw)
+            with metrics.use_registry() as reg:
+                bcd_fused.reset_launches()
+                t0 = time.perf_counter()
+                four = bcd.solve_bcd_many(S, L, devices=4, **kw)
+                torch.cuda.synchronize()
+                wall4 = time.perf_counter() - t0
+                k1 = bcd_fused.launches
+                dispatches = reg.value("kernel.launches.bcd_solve_batched")
+                gauge = reg.gauge("mesh.devices").value
+            k1_total += k1
+            diff = max(max(float((a.X - b.X).abs().max()),
+                           float((a.kernel_obj - b.kernel_obj).abs()),
+                           float((a.history.nan_to_num()
+                                  - b.history.nan_to_num()).abs().max()),
+                           abs(int(a.sweeps) - int(b.sweeps)))
+                       for a, b in zip(one, four))
+            records = []
+            for _ in range(3):     # a profiler session now and then drops records
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    bcd.solve_bcd_many(S, L, devices=4, **kw)
+                    torch.cuda.synchronize()
+                ivs = _kernel_intervals(prof, "bcd_fused")
+                records.append(len(ivs))
+                if len(ivs) == 4:
+                    break
+            t0 = time.perf_counter()
+            bcd.solve_bcd_many(S, L, **kw)
+            torch.cuda.synchronize()
+            wall1 = time.perf_counter() - t0
+            with metrics.use_registry() as reg:
+                eight = bcd.solve_bcd_many(S, L, devices=8, **kw)
+                clamp = reg.gauge("mesh.devices").value
+            same8 = all(torch.equal(a.X, b.X) for a, b in zip(one, eight))
+            rows.append({"case": label, "n_hat": [int(s.shape[0]) for s in S],
+                         "max_abs_diff": diff, "dispatches": dispatches,
+                         "k1_launches": k1, "mesh_devices": gauge,
+                         "profiler_k1_records": records,
+                         "k1_overlapping": _overlap(ivs),
+                         "wall_ms_4_lanes": wall4 * 1e3,
+                         "wall_ms_1_lane": wall1 * 1e3,
+                         "devices_8_gauge": clamp, "devices_8_equal": same8})
+            check(diff == 0.0, f"device_grid {label}: 4 lanes != 1 launch")
+            check(dispatches == 1 and k1 == 4 and gauge == 4.0,
+                  f"device_grid {label}: not one dispatch of four K1 launches")
+            check(4 in records, f"device_grid {label}: no session showed "
+                  "four K1 records")
+            check(clamp == 4.0 and same8,
+                  f"device_grid {label}: devices=8 did not clamp to 4 lanes")
+    emit("device_grid", seconds=time.perf_counter() - t_phase, cases=rows)
+    return k1_total
+
+
+def phase_mesh_streaming(record, store_dir, support):
+    """The streaming leg on four forced lanes of the card (the 300k store,
+    229 megabatches a pass, the union support):
+
+    (a) `mesh_feature_variances` and `mesh_reduced_covariance` at D 4
+        beside the engine's passes, each under torch.profiler (pass
+        seconds, the device's idle share, K2's and K3's launches and how
+        many ran while another lane's ran), then the mesh passes again
+        without it: max abs differences of variances, means and
+        Sigma_hat against the engine's; 58 + 58 dispatches, 1 + 1 passes,
+        229 + 229 kernel launches, the lanes' counters summing to the
+        pass's chunks and nnz; the repeated pass equal to the first;
+    (b) ``spca_run --streaming --devices 4``: the streaming record's
+        supports, 58 + 58 dispatches;
+    (c) the degrade ladder: one dispatch error at ``mesh.screen`` runs the
+        screen at D 2, two at ``mesh.gram`` run the Gram on the engine,
+        each equal to a clean pass at the D it ended on;
+    (d) a mesh screen pass killed by a read fault resumes at D 4 to the
+        uninterrupted pass bit for bit (checkpoints every 16 megabatches,
+        on superbatch boundaries), and its D 4 checkpoint is not restored
+        at D 2;
+    (e) what concurrent launches on the lanes' four streams of one card
+        do (`_lane_concurrency`)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import csr_gram, csr_stats
+    from repro_torch.launch import spca_run
+    from repro_torch.obs import metrics
+    from repro_torch.sparse import SparseCorpus, engine, mesh_engine
+    from repro_torch.testing import (
+        FaultInjector, SolverFaultInjector, dispatch_error, fail_nth_read,
+        install, install_solver)
+
+    t_phase = time.perf_counter()
+    geo = dict(chunk_nnz=16_384, chunk_rows=CHUNK_ROWS, megabatch=MEGABATCH,
+               device="cuda")
+    out = {}
+
+    def run(kind, fn, D, **kw):
+        c = {}
+        with metrics.use_registry() as reg:
+            csr_stats.reset_launches()
+            csr_gram.reset_launches()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = fn(SparseCorpus.open(store_dir), counters=c, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            busy = sum(k[0] for k in _device_events(prof)) / 1e3
+            name = "csr_stats" if kind == "screen" else "csr_gram"
+            ivs = _kernel_intervals(prof, name)
+            row = {"pass": kind, "devices": D, "seconds_profiled": wall,
+                   "device_idle_share": 1 - busy / wall,
+                   "k2_launches": csr_stats.launches,
+                   "k3_launches": csr_gram.launches,
+                   "kernels_overlapping": _overlap(ivs),
+                   "kernel_records": len(ivs),
+                   **{k: v for k, v in c.items()
+                      if not k.startswith("prefetch")},
+                   **{k: reg.value(k) for k in (
+                       "ingest.shard.chunks", "ingest.shard.nnz",
+                       "ingest.chunks")}}
+        return res, row
+
+    with _forced_lanes(4):
+        scr_e, r1 = run("screen", engine.sparse_feature_variances, 1, **geo)
+        means = scr_e.means.cpu().numpy()
+        G_e, r2 = run("gram", lambda s, **kw: engine.sparse_reduced_covariance(
+            s, support, means=means, **kw), 1, **geo)
+        scr_m, r3 = run("screen", mesh_engine.mesh_feature_variances, 4,
+                        devices=4, **geo)
+        G_m, r4 = run("gram", lambda s, **kw: mesh_engine.
+                      mesh_reduced_covariance(s, support, means=means, **kw),
+                      4, devices=4, **geo)
+        secs = {}
+        t0 = time.perf_counter()
+        scr_2 = mesh_engine.mesh_feature_variances(
+            SparseCorpus.open(store_dir), devices=4, **geo)
+        torch.cuda.synchronize()
+        secs["screen"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        G_2 = mesh_engine.mesh_reduced_covariance(
+            SparseCorpus.open(store_dir), support, devices=4, means=means,
+            **geo)
+        torch.cuda.synchronize()
+        secs["gram"] = time.perf_counter() - t0
+        store = SparseCorpus.open(store_dir)
+        n_mega = r1["screen_launches"]
+        disp = -(-n_mega // 4)
+        diffs = {
+            "variances": float((scr_m.variances - scr_e.variances).abs().max()),
+            "means": float((scr_m.means - scr_e.means).abs().max()),
+            "sigma_hat": float((G_m - G_e).abs().max()),
+            "sigma_hat_max_abs": float(G_e.abs().max()),
+            "repeat_variances": float((scr_2.variances
+                                       - scr_m.variances).abs().max()),
+            "repeat_sigma_hat": float((G_2 - G_m).abs().max())}
+        emit("mesh_streaming_passes", passes=[r1, r2, r3, r4],
+             mesh_seconds_unprofiled=secs, vs_engine=diffs,
+             megabatches=n_mega, nnz=int(store.nnz))
+        check(r3["screen_launches"] == r4["gram_launches"] == disp,
+              "mesh passes: dispatches != ceil(megabatches / 4)")
+        check(r3["screen_passes"] == r4["gram_passes"] == 1,
+              "mesh passes: not 1 + 1 passes")
+        check(r3["k2_launches"] == r4["k3_launches"] == n_mega
+              and r3["k3_launches"] == r4["k2_launches"] == 0,
+              "mesh passes: not one K2 / K3 launch a megabatch")
+        for r in (r3, r4):
+            check(r["ingest.shard.chunks"] == r["ingest.chunks"]
+                  == r1["chunks"] and r["ingest.shard.nnz"] == store.nnz,
+                  "mesh passes: lane counters do not sum to the pass")
+        check(diffs["repeat_variances"] == 0 == diffs["repeat_sigma_hat"],
+              "mesh passes: a repeated pass differs")
+        check(diffs["variances"] <= 1e-6 * float(scr_e.variances.max())
+              and diffs["sigma_hat"] <= 1e-6 * diffs["sigma_hat_max_abs"],
+              "mesh passes: far from the engine's")
+        out["k2"], out["k3"] = r3["k2_launches"], r4["k3_launches"]
+
+        # (b) the launcher on four lanes
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as sd:
+            csr_stats.reset_launches()
+            csr_gram.reset_launches()
+            t0 = time.perf_counter()
+            corpus, results, diag = spca_run.main(
+                STREAM_ARGS + ["--store-dir", sd, "--devices", "4"])
+            wall = time.perf_counter() - t0
+            k2, k3 = csr_stats.launches, csr_gram.launches
+        ing = diag["ingest"]
+        emit("mesh_streaming_fit", seconds=wall, pcs=_pc_lines(corpus, results),
+             components=_vs_record(results, record["fit"]), ingest=ing,
+             corpus_passes=diag["corpus_passes"], k2_launches=k2,
+             k3_launches=k3, mesh_degraded=diag.get("mesh_degraded", 0))
+        check(_same_supports(results, record["fit"]),
+              "spca_run --devices 4: supports differ from the streaming record")
+        check(ing["screen_launches"] == ing["gram_launches"] == disp
+              and diag["corpus_passes"] == 2 and k2 == k3 == n_mega,
+              "spca_run --devices 4: pass economics")
+        out["fit_k2"], out["fit_k3"] = k2, k3
+        del corpus
+
+        # (c) the degrade ladder
+        lad = {}
+        c = {}
+        with metrics.use_registry() as reg, install_solver(SolverFaultInjector(
+                dispatch_error(n=0, match="mesh.screen"))):
+            s_deg = mesh_engine.mesh_feature_variances(
+                SparseCorpus.open(store_dir), devices=4, counters=c, **geo)
+            lad["screen"] = {"mesh_degraded": c.get("mesh_degraded", 0),
+                             "ended_at": reg.gauge("mesh.devices").value}
+        s_d2 = mesh_engine.mesh_feature_variances(
+            SparseCorpus.open(store_dir), devices=2, **geo)
+        lad["screen"]["max_abs_diff_vs_clean_d2"] = float(
+            (s_deg.variances - s_d2.variances).abs().max())
+        lad["screen"]["max_abs_diff_vs_d4"] = float(
+            (s_deg.variances - scr_m.variances).abs().max())
+        c = {}
+        with install_solver(SolverFaultInjector(
+                dispatch_error(n=0, match="mesh.gram", times=2))):
+            G_deg = mesh_engine.mesh_reduced_covariance(
+                SparseCorpus.open(store_dir), support, devices=4,
+                means=means, counters=c, **geo)
+        lad["gram"] = {"mesh_degraded": c.get("mesh_degraded", 0),
+                       "max_abs_diff_vs_engine": float(
+                           (G_deg - G_e).abs().max())}
+        emit("mesh_degrade", **lad)
+        check(lad["screen"]["mesh_degraded"] == 1
+              and lad["screen"]["ended_at"] == 2.0
+              and lad["screen"]["max_abs_diff_vs_clean_d2"] == 0,
+              "mesh degrade: the screen did not rerun cleanly at D 2")
+        check(lad["gram"]["mesh_degraded"] == 2
+              and lad["gram"]["max_abs_diff_vs_engine"] == 0,
+              "mesh degrade: the Gram did not rerun cleanly on the engine")
+
+        # (d) kill and resume
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mresume_") as rd:
+            kw = dict(resume_dir=rd, checkpoint_every=16, io_retries=0, **geo)
+            with install(FaultInjector(fail_nth_read(
+                    4, match="*.values.npy", times=10**9))):
+                try:
+                    mesh_engine.mesh_feature_variances(
+                        SparseCorpus.open(store_dir), devices=4, **kw)
+                    killed = False
+                except OSError:
+                    killed = True
+            c4, c2 = {}, {}
+            s_res = mesh_engine.mesh_feature_variances(
+                SparseCorpus.open(store_dir), devices=4, counters=c4, **kw)
+            s_2 = mesh_engine.mesh_feature_variances(
+                SparseCorpus.open(store_dir), devices=2, counters=c2, **kw)
+        res = {"killed": killed,
+               "resumed_megabatches": c4.get("resumed_megabatches", 0),
+               "screen_launches_after_resume": c4.get("screen_launches", 0),
+               "max_abs_diff_vs_uninterrupted": float(
+                   (s_res.variances - scr_m.variances).abs().max()),
+               "means_max_abs_diff": float(
+                   (s_res.means - scr_m.means).abs().max()),
+               "d2_resumed_megabatches": c2.get("resumed_megabatches", 0),
+               "d2_screen_launches": c2.get("screen_launches", 0),
+               "d2_max_abs_diff_vs_clean_d2": float(
+                   (s_2.variances - s_d2.variances).abs().max())}
+        emit("mesh_resume", **res)
+        check(killed and 0 < res["resumed_megabatches"] < n_mega,
+              "mesh resume: the pass was not killed mid-pass and resumed")
+        check(res["max_abs_diff_vs_uninterrupted"] == 0
+              == res["means_max_abs_diff"],
+              "mesh resume: the resumed pass differs from the uninterrupted")
+        check(res["d2_resumed_megabatches"] == 0
+              and res["d2_screen_launches"] == -(-n_mega // 2),
+              "mesh resume: a D 4 checkpoint was restored at D 2")
+        _lane_concurrency(store_dir, support)
+    emit("mesh_streaming", seconds=time.perf_counter() - t_phase)
+    return out
+
+
+def _lane_concurrency(store_dir, support):
+    """Four K2 (and four K3) launches on the four lane streams of one
+    card, back to back with their inputs already on the card (in a mesh
+    pass each lane's blocking copy sits between them): whether they
+    overlap, serialize or fail, their results against the same launches
+    in turn on one stream (bit for bit), and the host ms of a round of
+    four either way (10 rounds each, after one to warm up)."""
+    import itertools
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.bow import local_support_cols
+    from repro_torch.kernels import csr_gram, csr_stats
+    from repro_torch.launch.mesh import lane_context, make_data_mesh, sync_lanes
+    from repro_torch.sparse import SparseCorpus
+
+    store = SparseCorpus.open(store_dir)
+    mbs = list(itertools.islice(store.iter_megabatches(
+        chunk_rows=CHUNK_ROWS, megabatch=MEGABATCH, reuse_buffers=False), 4))
+    mesh = make_data_mesh(4)
+    dev = mesh[0].device
+    n, k = store.n_cols, int(support.size)
+    ins = [tuple(torch.as_tensor(a, device=dev) for a in (
+        mb.values, mb.col_ids, local_support_cols(support, mb.col_ids),
+        mb.seg_ids)) for mb in mbs]
+    kernels = {
+        "csr_stats": lambda v, c, lc, sg: csr_stats.csr_column_stats_cuda(
+            v, c, n),
+        "csr_gram": lambda v, c, lc, sg: (csr_gram.csr_gram_cuda(
+            v, lc, sg, CHUNK_ROWS, k),)}
+    rows = {}
+    for name, fn in kernels.items():
+        def serial():
+            out = [fn(*x) for x in ins]
+            torch.cuda.synchronize()
+            return out
+
+        def lanes():
+            out = []
+            for lane, x in zip(mesh, ins):
+                with lane_context(lane):
+                    out.append(fn(*x))
+            sync_lanes(mesh)
+            return out
+
+        one, four = serial(), lanes()
+        equal = all(torch.equal(a, b) for x, y in zip(one, four)
+                    for a, b in zip(x, y))
+        ms = {}
+        for label, f in (("one_stream", serial), ("four_streams", lanes)):
+            f()
+            ms[label] = sum(host_ms(f) for _ in range(10)) / 10
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                lanes()
+        ivs = _kernel_intervals(prof, name)
+        rows[name] = {"records": len(ivs), "overlapping": _overlap(ivs),
+                      "streams": len({iv[2] for iv in ivs}),
+                      "equal_to_one_stream": equal,
+                      "host_ms_a_round": ms}
+        check(equal, f"lane concurrency: {name} on four streams != in turn")
+    emit("mesh_concurrency", **rows)
+
+
+def phase_baselines(corpus, results):
+    """The baselines on the card: the first-order DSPCA method on
+    component 1's Sigma_hat at its lambda (float64) against the BCD solve,
+    holding the reference's sandwich (its ``tests/test_bcd.py``): FO dual
+    >= BCD phi >= FO best primal - 1e-4; the power iteration against
+    ``torch.linalg.eigh``; and `distributed_screen_and_gram` on four
+    forced lanes over the dense corpus's first 4,096 docs (1.68 GB
+    float32) against one lane: the same support, Sigma_hat's difference
+    printed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import baselines, distributed, solve_bcd
+    from repro_torch.core import solve_first_order
+    from repro_torch.core.elimination import lam_for_target_size
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.launch.spca_run import dense_stats
+
+    t_phase = time.perf_counter()
+    r = results[0]
+    S = dense_stats(corpus, torch.device("cuda"))[1](r.reduced_support)
+    S = S.double()
+    res = solve_bcd(S, r.lam, beta=1e-7, max_sweeps=60, tol=1e-13,
+                    solver_impl="fused")
+    iters = 2000
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fo = solve_first_order(S, r.lam, max_iters=iters, eps=1e-3)
+    fo_s = time.perf_counter() - t0
+    phi = float(res.phi)
+    v, lam_pow = baselines.pca_power(S, iters=5000)
+    evals, evecs = torch.linalg.eigh(S)
+    align = float(torch.abs(v @ evecs[:, -1]))
+    A = torch.from_numpy(next(corpus.batches(4096))).cuda()
+    with _forced_lanes(4):
+        m1, m4 = make_data_mesh(1), make_data_mesh(4)
+        v1 = distributed.distributed_variances(A, m1).variances
+        lam = lam_for_target_size(v1.cpu().numpy(), 500)
+        t0 = time.perf_counter()
+        S1, sup1, _ = distributed.distributed_screen_and_gram(A, m1, lam)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        S4, sup4, _ = distributed.distributed_screen_and_gram(A, m4, lam)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+    emit("baselines", seconds=time.perf_counter() - t_phase,
+         n_hat=int(S.shape[0]), lam=r.lam, bcd_phi=phi,
+         fo_dual_min=float(fo.dual_history.min()),
+         fo_primal_max=float(fo.primal_history.max()), fo_iters=iters,
+         fo_iters_per_s=iters / fo_s, power_lambda=float(lam_pow),
+         eigh_lambda=float(evals[-1]), power_alignment=align,
+         dense_bytes=A.numel() * 4, dist_lam=lam, dist_support=int(sup1.size),
+         dist_support_equal=bool(np.array_equal(sup1, sup4)),
+         dist_sigma_max_abs_diff=float((S1 - S4).abs().max()),
+         dist_sigma_max_abs=float(S1.abs().max()),
+         dist_s_1_lane=t1 - t0, dist_s_4_lanes=t4 - t1)
+    check(float(fo.dual_history.min()) + 1e-4 >= phi
+          >= float(fo.primal_history.max()) - 1e-4,
+          "baselines: the first-order sandwich does not hold")
+    check(abs(float(lam_pow) - float(evals[-1]))
+          <= 1e-6 * float(evals[-1]), "baselines: power iteration != eigh")
+    check(np.array_equal(sup1, sup4),
+          "baselines: 4-lane support differs from 1 lane's")
+
+
+
 def main():
     import torch
 
@@ -2435,6 +3005,10 @@ def main():
     worst["float32"] = max(worst["float32"], row["max_abs_dX"])
     shape_rows = phase_fit_shape_timing(corpus, shapes["single"], clock)
     phase_profile(corpus)
+    # the lambda-grid probe (K1, one launch a search) and the device grid
+    # (K1, one launch a lane)
+    probe = phase_grid_probe(record, corpus)
+    grid_k1 = phase_device_grid(corpus, results)
     # slice (d): the dense row-block pipeline (K5, K6) and the per-row
     # solver (K7), on the dense cell's corpus
     dense = phase_dense_blocks(drecord, corpus)
@@ -2464,6 +3038,8 @@ def main():
         del store
         # slice (e): kill-and-resume of the streaming fit on the same store
         phase_resume_streaming(srecord, store_dir, sups["union"])
+        # the lane mesh: the passes (K2, K3 on every lane) and the fit
+        mesh = phase_mesh_streaming(srecord, store_dir, sups["union"])
     del s_corpus
     # slice (c): serving and K4
     served = phase_serve(vrecord)
@@ -2471,6 +3047,7 @@ def main():
     prow = phase_project_timing(vrecord, served["queries"])
     phase_serve_split(served["version"], served["queries"])
     phase_export(served)
+    phase_baselines(corpus, results)
     phase_per_row_profile(corpus)
     del corpus
     kernels = [{
@@ -2482,6 +3059,9 @@ def main():
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": None, **{k: row[k] for k in DEVICE_KEYS},
+        "new_path_launches": {"grid_probe_fit": probe["k1"],
+                              "grid_probes": probe["probe_k1"],
+                              "device_grid": grid_k1},
     }]
     for name, replaces in (("csr_stats", "src/repro/kernels/csr_stats.py:43"),
                            ("csr_gram", "src/repro/kernels/csr_gram.py:53")):
@@ -2493,7 +3073,11 @@ def main():
             "max_abs_err": csr_worst[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            **{k: t[k] for k in DEVICE_KEYS}})
+            **{k: t[k] for k in DEVICE_KEYS},
+            "new_path_launches": (
+                {"mesh_screen_pass": mesh["k2"], "mesh_fit": mesh["fit_k2"]}
+                if name == "csr_stats" else
+                {"mesh_gram_pass": mesh["k3"], "mesh_fit": mesh["fit_k3"]})})
     p64 = prow[64]
     kernels.append({
         "name": "sparse_project", "route": "cuda",

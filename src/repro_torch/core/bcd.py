@@ -62,6 +62,35 @@ class SolverDivergenceError(RuntimeError):
         self.completed: tuple = ()
 
 
+# Substrings of the messages a failed launch raises with: the kernel
+# wrappers' own ("<kernel> launch failed: ...") and the CUDA runtime's as
+# torch reports them ("CUDA error: ...", "CUDA out of memory").
+_LAUNCH_FAILURES = (" launch failed", "CUDA error", "CUDA out of memory")
+
+
+def is_dispatch_error(e: BaseException) -> bool:
+    """Whether ``e`` is a device-dispatch failure that fewer lanes may
+    survive: a failed kernel launch or an out-of-memory error as torch and
+    the kernel wrappers raise them, or the fault harness's
+    `testing.InjectedDispatchError`.  Data corruption
+    (`sparse.store.ShardCorruptionError`), `SolverDivergenceError`, a
+    kernel that failed to build, and every other error are permanent and
+    must propagate untouched, never be retried at fewer lanes."""
+    from ..kernels._build import KernelUnavailable
+    from ..sparse.store import ShardCorruptionError
+    from ..testing.faults import InjectedDispatchError
+
+    if isinstance(e, (ShardCorruptionError, SolverDivergenceError,
+                      KernelUnavailable)):
+        return False
+    accelerator = getattr(torch, "AcceleratorError", ())
+    if isinstance(e, (InjectedDispatchError, torch.cuda.OutOfMemoryError,
+                      accelerator)):
+        return True
+    return isinstance(e, RuntimeError) and any(
+        m in str(e) for m in _LAUNCH_FAILURES)
+
+
 _DEBRIS_SEQ = itertools.count()
 
 
@@ -308,6 +337,64 @@ def solve_bcd_with_history(Sigma, lam: float, *, beta: float | None = None,
                      qp_sweeps=qp_sweeps, tau_iters=tau_iters, tol=-1.0)
 
 
+def solve_bcd_grid(
+    Sigma,
+    lams,
+    *,
+    beta: float | None = None,
+    max_sweeps: int = 20,
+    qp_sweeps: int = 4,
+    tol: float = 1e-7,
+    tau_iters: int = 80,
+    X0=None,
+    impl: str = "auto",
+) -> BCDResult:
+    """Solve one ``Sigma`` at every lambda of a grid: the bracketing probe
+    of the lambda search (`spca.search_lambda` with ``lam_grid_probe``).
+    Returns a batched `BCDResult` whose leading axis is lambda; ``beta``
+    is a float.
+
+    ``impl`` is `solve_bcd`'s ``solver_impl``.  'fused' ('auto' on a CUDA
+    tensor) stacks the shared Sigma once a lambda and makes ONE
+    `ops.bcd_solve_batched` call, one launch of kernel K1, stopping each
+    problem on the barrier-free F(X) as the port's `solve_bcd` does on
+    the card; 'fused_ref' runs its plain version.  'jnp' ('auto' on the
+    CPU) runs the whole-matrix program once a lambda, the reference's
+    semantics: the exit reads the augmented objective, and the history is
+    that objective."""
+    n = Sigma.shape[0]
+    if beta is None:
+        beta = default_beta(Sigma)
+    beta = float(beta)
+    lams = [float(la) for la in np.asarray(lams, np.float64).reshape(-1)]
+    if X0 is None:
+        X0 = torch.eye(n, dtype=Sigma.dtype, device=Sigma.device)
+    else:
+        X0 = torch.as_tensor(X0).to(device=Sigma.device, dtype=Sigma.dtype)
+    impl = _resolve_solver_impl(impl, Sigma.device)
+    if impl == "jnp":
+        res = [_solve_bcd(Sigma, la, beta, X0, max_sweeps, qp_sweeps, tol,
+                          tau_iters) for la in lams]
+        out = BCDResult(*(torch.stack(f) for f in zip(*(r[:6] for r in res))))
+        return out._replace(beta=beta)
+    from ..kernels import ops as kernel_ops
+
+    B = len(lams)
+    X, kernel_obj, sweeps, hist = kernel_ops.bcd_solve_batched(
+        Sigma[None].expand(B, n, n), lams, [beta] * B,
+        X0[None].expand(B, n, n), [n] * B, max_sweeps=max_sweeps,
+        qp_sweeps=qp_sweeps, tol=tol, tau_iters=tau_iters,
+        impl="cuda" if impl == "fused" else "ref")
+    lam_t = torch.tensor(lams, dtype=Sigma.dtype, device=Sigma.device)
+    beta_t = torch.tensor(beta, dtype=Sigma.dtype, device=Sigma.device)
+    Z = X / torch.diagonal(X, dim1=-2, dim2=-1).sum(-1)[:, None, None]
+    obj = torch.stack([augmented_objective(X[b], Sigma, lam_t[b], beta_t)
+                       for b in range(B)])
+    phi = torch.stack([primal_value(Z[b], Sigma, lam_t[b]) for b in range(B)])
+    return BCDResult(X=X, Z=Z, obj=obj, phi=phi, history=hist,
+                     sweeps=sweeps, beta=beta, kernel_obj=kernel_obj)
+
+
 def solve_bcd_many(
     Sigmas,
     lams,
@@ -320,6 +407,8 @@ def solve_bcd_many(
     tau_iters: int = 80,
     impl: str = "auto",
     devices: int = 0,
+    min_devices: int = 1,
+    counters: dict | None = None,
 ) -> list[BCDResult]:
     """Solve B independent problems of (possibly) different sizes in ONE
     batched launch (`ops.bcd_solve_batched`).
@@ -330,11 +419,15 @@ def solve_bcd_many(
     with per-problem ``n_valid`` masks, so each result equals its
     standalone solve.  ``impl`` is the batched op's: 'auto' | 'cuda' |
     'ref'.
+
+    ``devices > 1`` fans the padded batch out across the lanes of the
+    data mesh (`ops.bcd_solve_batched` ``devices=``), still one dispatch,
+    traced as a ``solver.device_grid`` span.  A dispatch error there
+    (`is_dispatch_error`) retries the round at D/2, halving down to
+    ``min_devices``, and counts ``mesh.degraded`` (and
+    ``counters['mesh_degraded']``): each problem's result does not depend
+    on its lane, so a narrower grid changes launch economics only.
     """
-    if devices and devices > 1:
-        raise NotImplementedError(
-            "devices > 1 (the sharded device grid) is not ported yet: "
-            "ROADMAP queue 1 item 12")
     B = len(Sigmas)
     if B == 0:
         return []
@@ -357,12 +450,27 @@ def solve_bcd_many(
             Xp[k, :n, :n] = torch.as_tensor(X0s[k], dtype=dtype, device=dev)
     from ..kernels import ops as kernel_ops
 
-    with trace.span("solver.solve_many", batch=B, n_pad=n_pad, impl=impl):
-        X, kernel_objs, sweeps, hist = kernel_ops.bcd_solve_batched(
-            Sp, lams, betas, Xp, sizes, max_sweeps=max_sweeps,
-            qp_sweeps=qp_sweeps, tol=tol, tau_iters=tau_iters, impl=impl,
-        )
-        trace.device_sync(X)
+    D = min(max(int(devices or 0), 0), B)
+    while True:
+        span = "solver.device_grid" if D > 1 else "solver.solve_many"
+        kw = {"devices": D} if D > 1 else {}
+        try:
+            with trace.span(span, batch=B, n_pad=n_pad, impl=impl, **kw):
+                X, kernel_objs, sweeps, hist = kernel_ops.bcd_solve_batched(
+                    Sp, lams, betas, Xp, sizes, max_sweeps=max_sweeps,
+                    qp_sweeps=qp_sweeps, tol=tol, tau_iters=tau_iters,
+                    impl=impl, devices=D,
+                )
+                trace.device_sync(X)
+            break
+        except RuntimeError as e:
+            nD = max(int(min_devices), 1, D // 2)
+            if D <= 1 or nD >= D or not is_dispatch_error(e):
+                raise
+            metrics.counter("mesh.degraded").inc()
+            if counters is not None:
+                counters["mesh_degraded"] = counters.get("mesh_degraded", 0) + 1
+            D = nD
     out: list[BCDResult] = []
     for k, n in enumerate(sizes):
         Xk = X[k, :n, :n]

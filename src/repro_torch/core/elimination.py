@@ -83,6 +83,19 @@ def safe_support(variances, lam: float) -> np.ndarray:
     return np.flatnonzero(np.asarray(variances) >= lam)
 
 
+def eliminate(A: torch.Tensor, lam: float, *, center: bool = True):
+    """One-shot screen: ``(A_reduced, support, screen)``, where
+    ``A_reduced`` holds only the surviving columns, centred if requested,
+    ready for the reduced Gram."""
+    screen = feature_variances(A, center=center)
+    support = safe_support(screen.variances.cpu().numpy(), lam)
+    idx = torch.as_tensor(support, device=A.device)
+    A_red = A.index_select(1, idx)
+    if center:
+        A_red = A_red - screen.means.index_select(0, idx)[None, :]
+    return A_red, support, screen
+
+
 def reduced_covariance(A_red: torch.Tensor) -> torch.Tensor:
     """Covariance of the surviving features: Sigma_hat = A_red^T A_red / m."""
     return (A_red.T @ A_red) / A_red.shape[0]

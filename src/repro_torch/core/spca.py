@@ -61,14 +61,19 @@ class PCResult:
 @dataclass
 class SPCAConfig:
     """The reference's configuration, field for field, so a config dict
-    carries across (`repro_torch.convert.from_reference`).  The two fields
-    whose machinery is not ported yet (``mesh_devices``,
-    ``lam_grid_probe``) raise `NotImplementedError` when set (see
-    `check_config`); the out-of-core fields (``chunk_nnz`` ...
-    ``io_backoff_s``, ``checkpoint_every``, ``pass_deadline_s``) only
-    matter to a store handle.  ``resume_dir`` checkpoints the passes and
-    the fit (``fit_checkpoint_every`` evals/rounds between search
-    cursors); ``solve_deadline_s`` bounds each search round.
+    carries across (`repro_torch.convert.from_reference`).  The
+    out-of-core fields (``chunk_nnz`` ... ``io_backoff_s``,
+    ``checkpoint_every``, ``pass_deadline_s``) only matter to a store
+    handle.  ``lam_grid_probe > 1`` tightens each search's bracket with
+    one `bcd.solve_bcd_grid` call (one K1 launch on the card) on supports
+    of at most ``grid_probe_max_n``.  ``mesh_devices > 1`` runs on that
+    many lanes of the data mesh (`launch.mesh`): the batched search
+    solves ``batch_evals * mesh_devices`` evaluations a round, and with
+    ``data_parallel`` a store handle's passes shard their megabatches
+    across the lanes (`sparse.mesh_engine`); a dispatch error halves the
+    lanes down to ``mesh_min_devices``.  ``resume_dir`` checkpoints the
+    passes and the fit (``fit_checkpoint_every`` evals/rounds between
+    search cursors); ``solve_deadline_s`` bounds each search round.
     ``csr_impl`` is the CSR wrappers' ``impl``: 'auto' | 'cuda' | 'ref'."""
 
     center: bool = True
@@ -115,17 +120,7 @@ class SPCAConfig:
 
 
 def check_config(cfg: SPCAConfig) -> None:
-    """Refuse the fields whose machinery this port does not have yet,
-    naming the ROADMAP item that ports it."""
-    todo = {
-        "mesh_devices": (cfg.mesh_devices > 1, "queue 1 item 12 (mesh)"),
-        "lam_grid_probe": (cfg.lam_grid_probe > 1,
-                           "queue 1 item 15 (grid probe)"),
-    }
-    for name, (on, item) in todo.items():
-        if on:
-            raise NotImplementedError(
-                f"SPCAConfig.{name} is not ported yet: ROADMAP {item}")
+    """Refuse values the Hopper port has no machinery for."""
     bcd.check_qp_impl(cfg.qp_impl)
     if cfg.panel_rows:
         raise ValueError("SPCAConfig.panel_rows is the TPU tiled kernel's "
@@ -142,9 +137,20 @@ def _as_stats(data, is_covariance: bool, center: bool, device=None,
     materialise an (m, n) array.  ``counters``, with a store handle,
     collects the ingest pass/launch tallies (see `sparse.engine`)."""
     if hasattr(data, "iter_chunks"):
-        from ..sparse import engine
+        from ..sparse import engine, mesh_engine
 
         cfg = cfg if cfg is not None else SPCAConfig()
+        if cfg.mesh_devices > 1 and cfg.data_parallel:
+            return mesh_engine.mesh_sparse_stats(
+                data, devices=cfg.mesh_devices, center=center,
+                impl=cfg.csr_impl, chunk_nnz=cfg.chunk_nnz,
+                chunk_rows=cfg.chunk_rows, megabatch=cfg.megabatch_chunks,
+                prefetch_depth=cfg.ingest_prefetch, counters=counters,
+                io_retries=cfg.io_retries, io_backoff_s=cfg.io_backoff_s,
+                resume_dir=cfg.resume_dir,
+                checkpoint_every=cfg.checkpoint_every,
+                min_devices=cfg.mesh_min_devices,
+                pass_deadline_s=cfg.pass_deadline_s, device=device)
         return engine.sparse_stats(
             data, center=center, impl=cfg.csr_impl,
             chunk_nnz=cfg.chunk_nnz, chunk_rows=cfg.chunk_rows,
@@ -386,6 +392,32 @@ def solve_at_lambda(
     )
 
 
+def _grid_probe_bracket(Sigma_base, lo, hi, target_card, cfg):
+    """Tighten the bisection bracket with ONE multi-lambda solve
+    (`bcd.solve_bcd_grid`: one K1 launch on the card).
+
+    Every probe lambda is solved on the shared base support, which is
+    safe: by Thm 2.1 a feature with variance below lambda is absent from
+    the optimum of the larger problem too, so cardinalities read off the
+    base solves match the per-lambda eliminated solves.  Bracketing needs
+    trends, not converged solutions, so the probe runs few sweeps."""
+    lams = np.geomspace(lo, hi, cfg.lam_grid_probe)
+    grid = bcd.solve_bcd_grid(
+        Sigma_base, lams, beta=cfg.beta, max_sweeps=min(cfg.max_sweeps, 5),
+        qp_sweeps=cfg.qp_sweeps, tol=cfg.tol, tau_iters=cfg.tau_iters,
+        impl=cfg.solver_impl)
+    cards = [int(torch.count_nonzero(bcd.leading_sparse_component(
+        grid.Z[i], rel_tol=cfg.support_rel_tol))) for i in range(lams.size)]
+    too_dense = [la for la, c in zip(lams, cards)
+                 if c > target_card + cfg.card_slack]
+    too_sparse = [la for la, c in zip(lams, cards) if c < target_card]
+    new_lo = max(too_dense) if too_dense else lo
+    new_hi = min(too_sparse) if too_sparse else hi
+    if new_lo < new_hi:
+        return float(new_lo), float(new_hi)
+    return lo, hi
+
+
 def _card_better(cfg: SPCAConfig, target_card: int):
     """Candidate ordering shared by the sequential and batched searches:
     cardinality in [target, target+slack] first, else closest, then
@@ -489,6 +521,20 @@ def search_lambda(
                     np.asarray(cursor["warm_support"], np.int64))
         metrics.counter("fit.resume.evals_skipped").inc(evals_skipped)
 
+    probe_launches = 0
+    if cursor is None and cfg.lam_grid_probe > 1:
+        # The probe solves on the support at the bracket's lo.  The size
+        # guard is checked BEFORE anything is built, and the cache is
+        # seeded eagerly only when the probe runs (every later evaluation
+        # nests inside its support); a restored cursor's bracket already
+        # holds the probe's tightening.
+        probe_support = _support_at(v, lo, cfg.max_reduced, _buckets_of(cfg))
+        if probe_support.size <= cfg.grid_probe_max_n:
+            base = (cache.get(probe_support) if cache is not None
+                    else as_tensor(build(probe_support), device))
+            lo, hi = _grid_probe_bracket(base, lo, hi, target_card, cfg)
+            probe_launches = 1
+
     evals = warm_starts = total_sweeps = 0
     better = _card_better(cfg, target_card)
     for i in range(start_eval, cfg.lam_search_evals):
@@ -533,7 +579,7 @@ def search_lambda(
     assert best is not None
     metrics.counter("search.evals").inc(evals)
     metrics.counter("search.warm_starts").inc(warm_starts)
-    metrics.counter("solver.launches").inc(evals)
+    metrics.counter("solver.launches").inc(evals + probe_launches)
     if diagnostics is not None:
         diagnostics.update(
             evals=evals,
@@ -541,7 +587,8 @@ def search_lambda(
             total_sweeps=total_sweeps,
             cov_builds=cache.builds - builds0 if cache is not None else evals,
             cov_slices=cache.slices - slices0 if cache is not None else 0,
-            solve_launches=evals,
+            # one solver launch an evaluation, plus the probe's
+            solve_launches=evals + probe_launches,
             batched=False,
             evals_skipped=evals_skipped,
             fallbacks=fallbacks,
@@ -634,8 +681,12 @@ def _search_lambda_batched(
     Sigma_perm = _principal(Sigma_base, order)
     dtype, dev = Sigma_perm.dtype, Sigma_perm.device
 
-    B = cfg.batch_evals
+    # A data mesh widens each round: D lanes solve B problems each, so one
+    # dispatch covers B*D evaluations.
+    D = max(1, cfg.mesh_devices)
+    B = cfg.batch_evals * D
     rounds = max(1, -(-cfg.lam_search_evals // B))
+    mesh_ctr: dict = {}
     better = _card_better(cfg, target_card)
     best: dict | None = None
     warm: tuple | None = None     # (X on prefix, prefix length)
@@ -690,6 +741,8 @@ def _search_lambda_batched(
                 max_sweeps=cfg.max_sweeps, qp_sweeps=cfg.qp_sweeps,
                 tol=cfg.tol, tau_iters=cfg.tau_iters,
                 impl=_batched_impl(cfg.solver_impl),
+                devices=cfg.mesh_devices, min_devices=cfg.mesh_min_devices,
+                counters=mesh_ctr,
             )
         if cfg.solver_fallback:
             solved, fb = bcd.supervise_many(
@@ -772,8 +825,10 @@ def _search_lambda_batched(
             batched=True,
             evals_skipped=evals_skipped,
             fallbacks=fallbacks,
-            mesh_degraded=0,
+            mesh_degraded=mesh_ctr.get("mesh_degraded", 0),
         )
+        if D > 1:
+            diagnostics["devices"] = D
     return PCResult(
         x=x, support=nz, lam=best["lam"], variance=best["variance"],
         cardinality=best["cardinality"], reduced_n=t, gap=gap,
@@ -822,12 +877,15 @@ def _refine_components_batched(results: list[PCResult], stats,
     ]
     lams = [r.lam for r in results]
     X0s = [r.X_reduced for r in results]
+    mesh_ctr: dict = {}
     with trace.span("solver.batched_refine", components=len(results)):
         solved = bcd.solve_bcd_many(
             Sigmas, lams, X0s=X0s,
             betas=None if cfg.beta is None else [cfg.beta] * len(results),
             max_sweeps=cfg.max_sweeps, qp_sweeps=cfg.qp_sweeps, tol=cfg.tol,
             tau_iters=cfg.tau_iters, impl=_batched_impl(cfg.solver_impl),
+            devices=cfg.mesh_devices, min_devices=cfg.mesh_min_devices,
+            counters=mesh_ctr,
         )
     if cfg.solver_fallback:
         solved, fb = bcd.supervise_many(
@@ -837,6 +895,9 @@ def _refine_components_batched(results: list[PCResult], stats,
         )
         if counters is not None:
             counters["fallbacks"] = counters.get("fallbacks", 0) + fb
+    if counters is not None and mesh_ctr.get("mesh_degraded"):
+        counters["mesh_degraded"] = (counters.get("mesh_degraded", 0)
+                                     + mesh_ctr["mesh_degraded"])
     metrics.counter("solver.launches").inc()
     out: list[PCResult] = []
     for r, S, res in zip(results, Sigmas, solved):
@@ -980,6 +1041,9 @@ def _fit_components(data, n_components, target_card, *, is_covariance, cfg,
         if diagnostics is not None:
             total_fallbacks = (sum(d.get("fallbacks", 0) for d in per_comp)
                                + refine_ctr.get("fallbacks", 0))
+            total_degraded = (sum(d.get("mesh_degraded", 0) for d in per_comp)
+                              + refine_ctr.get("mesh_degraded", 0)
+                              + ingest.get("mesh_degraded", 0))
             diagnostics.update(
                 components=per_comp,
                 refine_launches=refine_launches,
@@ -989,12 +1053,13 @@ def _fit_components(data, n_components, target_card, *, is_covariance, cfg,
                     d.get("cov_builds", 0) for d in per_comp),
                 cov_slices=cache.slices if cache is not None else 0,
                 solver_fallbacks=total_fallbacks,
-                mesh_degraded=0,
+                mesh_degraded=total_degraded,
                 fit_resume={
                     "components_restored": len(restored),
                     "evals_skipped": sum(
                         d.get("evals_skipped", 0) for d in per_comp),
-                    "fallbacks": total_fallbacks, "mesh_degraded": 0,
+                    "fallbacks": total_fallbacks,
+                    "mesh_degraded": total_degraded,
                 },
             )
             if ingest:

@@ -201,3 +201,15 @@ def make_corpus(
         counts=np.concatenate(cts) if cts else np.zeros(0, np.float32),
         topics=topic_ids,
     )
+
+
+def nytimes_like(n_docs: int = 30_000, seed: int = 0) -> Corpus:
+    """NYTimes-dimension corpus: 102,660 words, planted Table-1 topics."""
+    return make_corpus(n_docs, 102_660, topics=NYTIMES_TOPICS, seed=seed,
+                       alpha=1.1)
+
+
+def pubmed_like(n_docs: int = 50_000, seed: int = 1) -> Corpus:
+    """PubMed-dimension corpus: 141,043 words, planted Table-2 topics."""
+    return make_corpus(n_docs, 141_043, topics=PUBMED_TOPICS, seed=seed,
+                       alpha=1.05)

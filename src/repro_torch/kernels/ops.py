@@ -120,30 +120,80 @@ def bcd_solve(Sigma, lam, beta, X0=None, *, max_sweeps: int = 20,
 def bcd_solve_batched(Sigmas, lams, betas, X0s, n_valids, *,
                       max_sweeps: int = 20, qp_sweeps: int = 4,
                       tol: float = 1e-7, tau_iters: int = 80,
-                      impl: str = "auto", scheme: str = "auto"):
+                      impl: str = "auto", scheme: str = "auto",
+                      devices: int = 0):
     """B independent whole solves in ONE launch (one warp a problem).
 
     ``Sigmas``/``X0s`` are (B, n, n) zero-padded problems occupying their
     leading ``n_valids[b]`` coordinates.  Returns ``(X (B,n,n), obj (B,),
     sweeps (B,), history (B, max_sweeps))``.
+
+    ``devices > 1`` splits the batch across the lanes of the data mesh
+    (`launch.mesh.make_data_mesh`): B is padded up to a multiple of D by
+    repeating problem 0, each lane solves its B/D slice with one launch on
+    its own stream, and lane 0 gathers the results, sliced back to B.
+    That still counts ONE ``kernel.launches.bcd_solve_batched`` dispatch
+    and sets the ``mesh.devices`` gauge.  D clamps to ``min(devices, B,
+    lanes available)``; each problem's bits do not depend on its lane.
     """
     kernel = use_kernel(impl, Sigmas)
+    D = 0
+    if devices and devices > 1:
+        from ..launch.mesh import lanes_available
+
+        D = min(int(devices), Sigmas.shape[0],
+                lanes_available(Sigmas.device))
     with _launch("bcd_solve_batched"):
         solver_fault_before("bcd_solve_batched")
+        kw = dict(max_sweeps=max_sweeps, qp_sweeps=qp_sweeps,
+                  tau_iters=tau_iters)
         if kernel:
-            out = bcd_fused.bcd_solve_batched_cuda(
-                Sigmas, lams, betas, X0s, tol, n_valids,
-                max_sweeps=max_sweeps, qp_sweeps=qp_sweeps,
-                tau_iters=tau_iters, scheme=scheme,
-            )
+            def solve(S, la, be, X0, nv):
+                return bcd_fused.bcd_solve_batched_cuda(
+                    S, la, be, X0, tol, nv, scheme=scheme, **kw)
         else:
-            out = ref.bcd_solve_batched_ref(
-                Sigmas, lams, betas, X0s, tol, n_valids,
-                max_sweeps=max_sweeps, qp_sweeps=qp_sweeps,
-                tau_iters=tau_iters,
-            )
+            def solve(S, la, be, X0, nv):
+                return ref.bcd_solve_batched_ref(S, la, be, X0, tol, nv, **kw)
+        if D > 1:
+            out = _device_grid(solve, D, Sigmas, lams, betas, X0s, n_valids)
+        else:
+            out = solve(Sigmas, lams, betas, X0s, n_valids)
     return solver_fault_after("bcd_solve_batched", out,
                               max_sweeps=max_sweeps)
+
+
+def _device_grid(solve, D, Sigmas, lams, betas, X0s, n_valids):
+    """``solve`` split across D lanes: B padded to a multiple of D with
+    copies of problem 0, lane d solving rows [d B/D, (d+1) B/D) on its
+    stream, results gathered on the inputs' device and sliced to B.  The
+    per-problem scalars stay float64 / int64 host values until the
+    solver casts them, as on one lane."""
+    from ..launch.mesh import lane_context, make_data_mesh, sync_lanes
+
+    mesh = make_data_mesh(D, device=Sigmas.device)
+    metrics.gauge("mesh.devices").set(D)
+    B, dev = Sigmas.shape[0], Sigmas.device
+    f64 = torch.float64
+    lams = torch.as_tensor(lams, dtype=f64).reshape(-1).expand(B)
+    betas = torch.as_tensor(betas, dtype=f64).reshape(-1).expand(B)
+    n_valids = torch.as_tensor(n_valids).reshape(-1).expand(B)
+    per = -(-B // D)
+    rows = torch.cat([torch.arange(B),
+                      torch.zeros(per * D - B, dtype=torch.int64)])
+    parts = []
+    for d, lane in enumerate(mesh):
+        take = rows[d * per:(d + 1) * per]
+        with lane_context(lane):
+            on = take.to(dev)
+            parts.append(solve(
+                Sigmas.index_select(0, on).to(lane.device),
+                lams[take], betas[take],
+                X0s.index_select(0, on).to(lane.device), n_valids[take]))
+    sync_lanes(mesh)
+    out = tuple(torch.cat([p[i].to(dev) for p in parts])[:B]
+                for i in range(4))
+    sync_lanes(mesh)
+    return out
 
 
 def qp_sweeps(Y, s, lam, u0, j, *, sweeps: int = 4, impl: str = "auto"):

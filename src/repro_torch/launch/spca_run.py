@@ -36,7 +36,15 @@ serves ``/metrics`` (Prometheus text), ``/healthz``, ``/varz`` and
 ``--export-interval`` seconds under the solver, ingestion and runtime
 health rules.
 
-Not ported yet: ``--devices`` (exits with ROADMAP queue 1 item 12).
+With ``--devices D`` the fit runs on D lanes of the data mesh
+(`launch.mesh`): each ``--streaming`` corpus pass drains superbatches of
+D megabatches in ceil(B/D) dispatches, one K2 or K3 launch a lane, with
+per-lane accumulators pooled once at the pass's end, and every batched
+lambda-search round (``--batch-evals B``) solves B*D evaluations in one
+dispatch, one K1 launch a lane.  Pass economics stay 1 + 1.  D lanes need
+D cards, or ``REPRO_TORCH_FORCE_LANES=D`` in the environment to let the
+lanes share the cards there are (on the CPU, D lanes of the CPU); with
+fewer, the launcher says so and runs on the lanes there are.
 """
 from __future__ import annotations
 
@@ -55,8 +63,7 @@ from ..data.corpus import NYTIMES_TOPICS, PUBMED_TOPICS, make_corpus
 from ..device import resolve
 from ..obs import health, metrics, profile, trace
 from ..obs.export import TelemetryExporter
-
-_NOT_PORTED = {"devices": "queue 1 item 12 (mesh)"}
+from .mesh import FORCE_LANES_ENV, lanes_available
 
 
 def parse_args(argv=None):
@@ -130,14 +137,11 @@ def parse_args(argv=None):
                          "--export-port; each interval appends one delta "
                          "snapshot to --metrics)")
     ap.add_argument("--devices", type=int, default=0,
-                    help="(not ported yet)")
-    args = ap.parse_args(argv)
-    asked = {"devices": args.devices > 1}
-    for name, item in _NOT_PORTED.items():
-        if asked[name]:
-            ap.exit(2, f"--{name.replace('_', '-')} is not ported yet: "
-                       f"ROADMAP {item}\n")
-    return args
+                    help=">1: run the streaming passes and the batched "
+                         "solves on D lanes of the data mesh (D cards, or "
+                         f"{FORCE_LANES_ENV}=D to share the cards there "
+                         "are)")
+    return ap.parse_args(argv)
 
 
 def main(argv=None, *, on_exporter=None):
@@ -209,9 +213,11 @@ def streaming_stats(corpus, store_dir, cfg, ingest, device):
     """The streaming mode's ``(variances, build)`` pair: the corpus
     written to a CSR store in ``store_dir``, the screen pass run now and
     the Gram pass left to ``build``, both through the CSR kernels on
-    ``device``; ``ingest`` collects the pass counters."""
+    ``device`` (across ``cfg.mesh_devices`` lanes when > 1); ``ingest``
+    collects the pass counters."""
     from ..sparse import write_corpus
     from ..sparse.engine import sparse_stats
+    from ..sparse.mesh_engine import mesh_sparse_stats
 
     t0 = time.time()
     store = write_corpus(corpus, store_dir)
@@ -219,13 +225,20 @@ def streaming_stats(corpus, store_dir, cfg, ingest, device):
     print(f"  wrote CSR store: {store.n_shards} shard(s), {mb:.1f} MB "
           f"at {store_dir} ({time.time() - t0:.1f}s)")
     t0 = time.time()
-    var, build = sparse_stats(
-        store, chunk_nnz=cfg.chunk_nnz, chunk_rows=cfg.chunk_rows,
-        megabatch=cfg.megabatch_chunks, prefetch_depth=cfg.ingest_prefetch,
-        impl=cfg.csr_impl, counters=ingest, io_retries=cfg.io_retries,
-        io_backoff_s=cfg.io_backoff_s, resume_dir=cfg.resume_dir,
-        checkpoint_every=cfg.checkpoint_every,
-        pass_deadline_s=cfg.pass_deadline_s, device=device)
+    kw = dict(chunk_nnz=cfg.chunk_nnz, chunk_rows=cfg.chunk_rows,
+              megabatch=cfg.megabatch_chunks,
+              prefetch_depth=cfg.ingest_prefetch, impl=cfg.csr_impl,
+              counters=ingest, io_retries=cfg.io_retries,
+              io_backoff_s=cfg.io_backoff_s, resume_dir=cfg.resume_dir,
+              checkpoint_every=cfg.checkpoint_every,
+              pass_deadline_s=cfg.pass_deadline_s, device=device)
+    if cfg.mesh_devices > 1 and cfg.data_parallel:
+        print(f"  sharding passes across {cfg.mesh_devices} lane(s) "
+              "(1-D data mesh)")
+        var, build = mesh_sparse_stats(store, devices=cfg.mesh_devices,
+                                       min_devices=cfg.mesh_min_devices, **kw)
+    else:
+        var, build = sparse_stats(store, **kw)
     resumed = ingest.get("resumed_megabatches", 0)
     print(f"  out-of-core variance screen: {time.time() - t0:.1f}s "
           f"(one pass over {store.nnz} nnz, "
@@ -249,6 +262,16 @@ def run(args):
                          seed=exp.seed)
     print(f"  nnz={corpus.nnz} ({time.time() - t0:.1f}s)")
 
+    devices = max(0, args.devices)
+    if devices > 1:
+        avail = lanes_available(device)
+        if avail < devices:
+            print(f"  --devices {devices} requested but only {avail} "
+                  f"lane(s) exist — falling back to {avail} (set "
+                  f"{FORCE_LANES_ENV}={devices} to let {devices} lanes "
+                  "share the devices there are)")
+            devices = avail
+
     cfg = SPCAConfig(max_sweeps=8, lam_search_evals=8,
                      chunk_nnz=args.chunk_nnz, chunk_rows=args.chunk_rows,
                      megabatch_chunks=args.megabatch,
@@ -256,6 +279,7 @@ def run(args):
                      io_retries=args.io_retries,
                      resume_dir=args.resume or None,
                      checkpoint_every=args.checkpoint_every,
+                     mesh_devices=devices,
                      solver_fallback=not args.no_solver_fallback,
                      pass_deadline_s=args.pass_deadline_s,
                      solve_deadline_s=args.solve_deadline_s)
@@ -311,6 +335,9 @@ def run(args):
     if diag.get("solver_fallbacks"):
         extras.append(f"took {diag['solver_fallbacks']} solver "
                       "fallback(s) to the oracle path")
+    if diag.get("mesh_degraded"):
+        extras.append(f"degraded the device mesh {diag['mesh_degraded']} "
+                      "time(s)")
     if ingest.get("io_retries"):
         extras.append(f"absorbed {ingest['io_retries']} transient "
                       "read error(s)")

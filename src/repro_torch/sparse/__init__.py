@@ -8,15 +8,21 @@
               (``kernels/csrc/csr_stats.cu``) and K3
               (``kernels/csrc/csr_gram.cu``), and the ``(variances,
               build)`` pair `core.spca` consumes
+  mesh_engine.py — the same passes across the lanes of the data mesh
+              (`launch.mesh`): superbatches of D megabatches, one dispatch
+              each (one K2 or K3 launch a lane), per-lane accumulators
+              pooled once at finalize through
+              `core.distributed.psum_partials`
   resume.py — atomic accumulator + cursor checkpoints at megabatch
               boundaries, so a killed pass restarts where it stopped
               (checkpoints cross between the two packages both ways)
-
-Not ported yet: ``mesh_engine`` (ROADMAP queue 1 item 12).
 """
 from .engine import (
     screen_and_gram_sparse, sparse_feature_variances, sparse_reduced_covariance,
     sparse_stats,
+)
+from .mesh_engine import (
+    mesh_feature_variances, mesh_reduced_covariance, mesh_sparse_stats,
 )
 from .resume import DEFAULT_CHECKPOINT_EVERY, PassCheckpointer, pass_fingerprint
 from .store import (
@@ -29,5 +35,6 @@ __all__ = [
     "DEFAULT_CHUNK_ROWS", "DEFAULT_CHECKPOINT_EVERY", "PassCheckpointer",
     "ShardCorruptionError", "SparseCorpus", "pass_fingerprint",
     "write_corpus", "screen_and_gram_sparse", "sparse_feature_variances",
-    "sparse_reduced_covariance", "sparse_stats",
+    "sparse_reduced_covariance", "sparse_stats", "mesh_feature_variances",
+    "mesh_reduced_covariance", "mesh_sparse_stats",
 ]

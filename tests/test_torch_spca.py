@@ -127,40 +127,41 @@ def test_corpus_copy_is_bit_identical():
     assert np.array_equal(a.columns_dense(ids), b.columns_dense(ids))
 
 
-@pytest.mark.parametrize("field,value", [
-    ("mesh_devices", 2), ("lam_grid_probe", 4),
-])
-def test_unported_config_fields_raise(field, value):
-    cfg = TConfig(**{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfit(np.eye(4), 1, target_card=1, cfg=cfg, device="cpu")
-
-
 def test_unknown_qp_impl_is_a_value_error():
     with pytest.raises(ValueError, match="unknown qp_impl"):
         tfit(np.eye(4), 1, target_card=1, cfg=TConfig(qp_impl="pallsa"),
              device="cpu")
 
 
-def test_store_handle_raises_not_ported(tmp_path):
-    """A store handle fits out of core, with pass and fit checkpoints and
-    the pass watchdog since the reliability slice (ROADMAP queue 1 item
-    8); what it still refuses, naming the item that ports it, is the
-    device mesh (item 12)."""
+def test_store_handle_fits_with_checkpoints_and_two_lanes(tmp_path,
+                                                         monkeypatch):
+    """A store handle fits out of core with pass and fit checkpoints and
+    the pass watchdog, and on two forced lanes of the data mesh
+    (``mesh_devices=2``) to the same support, each pass in half the
+    dispatches."""
+    from repro_torch.launch.mesh import FORCE_LANES_ENV
     from repro_torch.sparse import write_corpus
 
     store = write_corpus(tcorpus.make_corpus(300, 400, seed=1),
                          str(tmp_path / "s"))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tfit(store, 1, cfg=TConfig(mesh_devices=2), device="cpu")
     diag = {}
     rd = str(tmp_path / "ckpt")
+    cfg = dict(max_sweeps=3, lam_search_evals=3, chunk_nnz=1024,
+               chunk_rows=64)
     pcs = tfit(store, 1, target_card=3, diagnostics=diag, device="cpu",
-               cfg=TConfig(max_sweeps=3, lam_search_evals=3, resume_dir=rd,
-                           pass_deadline_s=600.0, solve_deadline_s=600.0))
+               cfg=TConfig(**cfg, resume_dir=rd, pass_deadline_s=600.0,
+                           solve_deadline_s=600.0))
     assert pcs[0].cardinality > 0 and diag["corpus_passes"] == 2
     kinds = sorted(name.rsplit("_", 1)[0] for name in os.listdir(rd))
     assert kinds == ["fit", "pass_gram", "pass_screen"]
+    monkeypatch.setenv(FORCE_LANES_ENV, "2")
+    d2 = {}
+    two = tfit(store, 1, target_card=3, diagnostics=d2, device="cpu",
+               cfg=TConfig(**cfg, mesh_devices=2))
+    assert np.array_equal(two[0].support, pcs[0].support)
+    assert d2["corpus_passes"] == 2 and d2["mesh_degraded"] == 0
+    for k in ("screen_launches", "gram_launches"):
+        assert d2["ingest"][k] == -(-diag["ingest"][k] // 2), k
 
 
 def test_convert_from_reference_state():

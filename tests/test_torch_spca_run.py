@@ -39,12 +39,30 @@ def test_launchers_print_the_same_components(monkeypatch, capsys):
     assert got == want
 
 
-@pytest.mark.parametrize("flag", [["--devices", "2"]])
-def test_unported_launcher_flags_exit_with_roadmap_item(flag, capsys):
-    with pytest.raises(SystemExit) as ei:
-        trun.main([*ARGS, *flag])
-    assert ei.value.code == 2
-    assert "not ported yet: ROADMAP queue 1 item" in capsys.readouterr().err
+def test_launcher_devices_agrees_with_reference(monkeypatch, capsys,
+                                               tmp_path):
+    """``--devices 2`` on two forced lanes: the reference launcher's
+    components (it runs on its one device, as it says), each pass in
+    ceil(11/2) = 6 dispatches, 1 + 1 passes."""
+    from repro_torch.launch.mesh import FORCE_LANES_ENV
+
+    args = [*ARGS[:-1], "3", "--streaming", "--chunk-nnz", "2048",
+            "--devices", "2"]
+    monkeypatch.setattr(sys, "argv", ["spca_run", *args, "--store-dir",
+                                      str(tmp_path / "ref")])
+    jrun.main()
+    jout = capsys.readouterr().out
+    monkeypatch.setenv(FORCE_LANES_ENV, "2")
+    _, _, diag = trun.main([*args, "--device", "cpu", "--store-dir",
+                            str(tmp_path / "port")])
+    tout = capsys.readouterr().out
+    assert "sharding passes across 2 lane(s)" in tout
+    assert len(_pc_lines(jout)) == 6
+    assert _pc_lines(tout) == _pc_lines(jout)
+    assert diag["corpus_passes"] == 2
+    ing = diag["ingest"]
+    assert ing["screen_launches"] == ing["gram_launches"] == 6
+    assert ing["chunks"] == 2 * 88
 
 
 def _ingest_lines(text):
