@@ -72,6 +72,15 @@ words, 5 components, target cardinality 5):
 * the baselines (``baselines``): the first-order method's sandwich
   around the BCD solve, the power iteration against ``eigh``, and the
   dense pooled statistics on 4 lanes against 1.
+* the LM serving path, after the rest (``lm_*``): the serve loop on the
+  reference's smoke weights of qwen2-0.5b and mamba2-130m against
+  ``lm_serve_smoke.npz`` (``lm_record``); qwen2-0.5b and mamba2-130m at
+  their published widths in float32, decode against forward and the
+  card against the CPU (``lm_full_width``); and ``launch/serve.py --arch
+  qwen2-0.5b`` at full width, B 4 and B 64, with decode tok/s, ms a
+  step, prefill seconds and peak memory beside the card's name and power
+  limit (``lm_serve``).  This path has no kernel of its own: the
+  reference computes it with plain ``@`` and so does the port.
 
 Each phase prints one JSON line; a failed check raises, so the script
 exits non-zero.  The last lines are the kernel table, the card's name
@@ -2967,6 +2976,212 @@ def phase_baselines(corpus, results):
 
 
 
+LM_F32 = ("float32", "float32")
+
+
+def _lm_free():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_lm_record():
+    """The LM serving record on the card: the reference's ``PRNGKey(0)``
+    weights of the qwen2-0.5b and mamba2-130m smoke configs, carried in
+    by ``lm_params_from_reference``, through the port's serve loop in
+    float32 with TF32 off; each prompt step's logits within the CPU test's
+    ``LOGITS_TOL`` x max |logits| of the reference's, the greedy tokens
+    equal."""
+    import torch
+
+    from repro_torch.testing import lm_record as lr
+
+    t0 = time.perf_counter()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rec = lr.load_record()
+        out = {}
+        for arch in lr.ARCHS:
+            logits, tokens = lr.run_record(arch, rec[arch]["params"],
+                                           rec[arch]["prompt"], "cuda")
+            out[arch] = lr.compare(rec[arch], logits, tokens)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    emit("lm_record", seconds=time.perf_counter() - t0, tol=lr.LOGITS_TOL,
+         archs=out)
+    for arch, res in out.items():
+        check(res["logits_err_rel"] < lr.LOGITS_TOL,
+              f"lm_record: {arch} logits {res['logits_err_rel']} from the "
+              "reference's")
+        check(res["tokens_equal"], f"lm_record: {arch} greedy tokens differ")
+
+
+def _lm_full_width(arch, batch=2, steps=16, cpu_tokens=4):
+    """One config at its published width in float32 dtypes, weights from
+    a seeded generator: CPU forward on the first ``cpu_tokens`` tokens,
+    then the same model moved to the card: forward on them (held to the
+    CPU's), forward on all ``steps`` tokens, and ``steps`` decode steps
+    (held to that forward, as ``tests/test_models.py`` holds the
+    reference)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, param_count
+
+    cfg = get_config(arch).scaled(dtypes=LM_F32)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    init_s = time.perf_counter() - t0
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(batch, steps)), dtype=torch.int64)
+    with torch.no_grad():
+        cpu_logits = model({"tokens": toks[:, :cpu_tokens]})[0]
+        model.to("cuda")
+        toks = toks.cuda()
+        short = model({"tokens": toks[:, :cpu_tokens]})[0]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        full = model({"tokens": toks})[0]
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t1) * 1e3
+        cache = model.init_cache(batch, steps + 1, dtype=torch.float32)
+        outs = []
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for t in range(steps):
+            lg, cache = model.decode_step(cache, toks[:, t:t + 1])
+            outs.append(lg)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t1) * 1e3 / steps
+        dec = torch.stack(outs, 1)
+    scale = float(full.abs().max())
+    cpu_scale = float(cpu_logits.abs().max())
+    row = dict(
+        arch=arch, params=param_count(model), batch=batch, steps=steps,
+        init_s=init_s, forward_ms=fwd_ms, decode_ms_per_step=step_ms,
+        finite=bool(torch.isfinite(full).all() and torch.isfinite(dec).all()),
+        decode_vs_forward_rel=float((dec - full).abs().max()) / max(scale, 1.0),
+        card_vs_cpu_rel=float((short.cpu() - cpu_logits).abs().max())
+        / cpu_scale,
+        max_abs_logit=scale)
+    del model, cache, outs, dec, full, short
+    _lm_free()
+    return row
+
+
+def phase_lm_full_width():
+    """qwen2-0.5b and mamba2-130m at their published widths in float32
+    (TF32 off): decode of 16 tokens at B 2 equals ``forward`` within
+    2e-3 x max |logits|, and the card's logits on 4 tokens equal the
+    port's CPU logits on the same weights within 1e-4 x max |logits|."""
+    import torch
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rows = [_lm_full_width(a) for a in ("qwen2-0.5b", "mamba2-130m")]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for row in rows:
+        emit("lm_full_width", **row)
+    for row in rows:
+        a = row["arch"]
+        check(row["finite"], f"lm_full_width: {a} logits not finite")
+        check(row["decode_vs_forward_rel"] < 2e-3,
+              f"lm_full_width: {a} decode != forward "
+              f"({row['decode_vs_forward_rel']})")
+        check(row["card_vs_cpu_rel"] < 1e-4,
+              f"lm_full_width: {a} card != CPU ({row['card_vs_cpu_rel']})")
+
+
+def phase_lm_serve():
+    """The port's ``launch/serve.py --arch qwen2-0.5b`` at its published
+    width with its default dtypes (float32 parameters, bfloat16 compute
+    and cache), prompt 16, 32 greedy steps, at B 4 and B 64: its two
+    lines, then decode tok/s, ms a step (each step copies its tokens to
+    the host, as the launcher does), the prefill's seconds (16 decode
+    steps) and the peak device memory, beside the card's name and power
+    limit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    vocab = get_config("qwen2-0.5b").vocab_size
+    smi = nvidia_smi()
+    for batch in (4, 64):
+        torch.cuda.reset_peak_memory_stats()
+        res = serve.main(["--arch", "qwen2-0.5b", "--batch", str(batch),
+                          "--prompt-len", "16", "--gen", "32"])
+        toks = res["tokens"]
+        gen = toks.shape[1]
+        row = dict(arch="qwen2-0.5b", batch=batch, prompt_len=16, gen=gen,
+                   decode_tok_s=gen * batch / res["decode_s"],
+                   decode_ms_per_step=res["decode_s"] / gen * 1e3,
+                   prefill_s=res["prefill_s"], setup_s=res["setup_s"],
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   card=smi)
+        emit("lm_serve", **row)
+        print(f"lm_serve qwen2-0.5b B {batch}: "
+              f"{row['decode_tok_s']:.1f} decode tok/s, "
+              f"{row['decode_ms_per_step']:.2f} ms a step, prefill "
+              f"{row['prefill_s']:.3f} s, max memory "
+              f"{row['max_memory_allocated'] / 2**30:.2f} GiB on {smi}",
+              flush=True)
+        check(toks.shape == (batch, 32) and toks.min() >= 0
+              and toks.max() < vocab and np.isfinite(row["decode_tok_s"]),
+              f"lm_serve: B {batch} tokens out of shape or vocabulary")
+        _lm_free()
+    _lm_serve_profile()
+
+
+def _lm_serve_profile(batch=4, steps=8):
+    """Where a decode step's time goes: ``steps`` greedy steps of the
+    launcher's model (qwen2-0.5b, default dtypes, B 4, after 16 warm-up
+    steps) under torch.profiler: wall ms a step, device-busy ms a step,
+    device launches a step, the largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import make_serve_step
+
+    model = build_model(get_config("qwen2-0.5b"), device="cuda")
+    serve = make_serve_step(model)
+    cache = model.init_cache(batch, 16 + steps + 1)
+    tok = torch.zeros((batch, 1), dtype=torch.int64, device="cuda")
+    for _ in range(16):
+        cache, tok = serve(cache, tok)
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            cache, tok = serve(cache, tok)
+            tok.cpu()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = _device_events(prof)
+    busy_ms = sum(k[0] for k in ev)
+    emit("lm_serve_profile", arch="qwen2-0.5b", batch=batch, steps=steps,
+         wall_ms_per_step=wall * 1e3 / steps,
+         device_busy_ms_per_step=busy_ms / steps,
+         device_idle_share=1 - busy_ms / (wall * 1e3),
+         device_events_per_step=sum(k[1] for k in ev) / steps,
+         top=[{"ms_per_step": k[0] / steps, "count_per_step": k[1] / steps,
+               "name": k[2]} for k in ev[:6]])
+    del model, cache
+    _lm_free()
+
+
 def main():
     import torch
 
@@ -3050,6 +3265,10 @@ def main():
     phase_baselines(corpus, results)
     phase_per_row_profile(corpus)
     del corpus
+    # the LM serving path (no kernel of its own: plain torch products)
+    phase_lm_record()
+    phase_lm_full_width()
+    phase_lm_serve()
     kernels = [{
         "name": "bcd_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bcd_fused.cu",

@@ -3,7 +3,9 @@
 
 The layout mirrors ``repro``: ``core/`` (elimination, BCD, driver),
 ``kernels/`` (the hand-written CUDA kernels, their plain versions and
-wrappers), ``obs/``, ``data/``, ``configs/``, ``launch/``.  The port
+wrappers), ``obs/``, ``data/``, ``configs/`` (the experiments and the
+LM architectures), ``models/`` (the LM zoo), ``train/`` (its serve
+steps), ``launch/``.  The port
 imports torch, numpy and the standard library, never jax or ``repro``.
 Entry points run on CUDA unless given ``device="cpu"``.
 """

@@ -1,5 +1,10 @@
 """Carry the reference package's state into the port.
 
+Language models (`lm_params_from_reference`): the reference's parameter
+pytree, as nested dicts of numpy arrays, is copied into a port `LM` or
+`EncDec`; each leaf the reference stacks along ``n_periods`` is split
+into the port's per-period modules.
+
 Sparse PCA has no learned weights: what makes the two packages compute
 the same thing is the same configuration and the same numeric state (the
 variance screen, the reduced covariance, a warm start, a fitted
@@ -96,3 +101,63 @@ def model_version_from_reference(fields: dict, *, device=None
         raise TypeError(f"not registry leaves: {sorted(unknown)}")
     return version_from_tree({k: np.asarray(v) for k, v in fields.items()},
                              version=0, device=device)
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, prefix + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, prefix + (i,))
+    else:
+        yield prefix, tree
+
+
+def lm_params_from_reference(model, tree):
+    """Copy the reference's LM/EncDec parameters into ``model`` (a port
+    `LM` or `EncDec` of the same config) and return it.
+
+    ``tree`` is the reference's parameter pytree as nested dicts of numpy
+    arrays (``jax.tree.map(np.asarray, params)``).  A leaf under
+    ``stacks/s{i}`` or ``enc_stack`` carries a leading ``n_periods`` axis;
+    row ``n`` goes to period ``n`` of the port's stack
+    (``stacks/s{i}/{n}/b{j}/...``).  Weights keep the reference's
+    ``(d_in, d_out)`` layout, so every leaf is a copy, never a transpose.
+    A leaf missing on either side, or of another shape or dtype, raises."""
+    ref = {path: np.asarray(a) for path, a in _leaves(tree)}
+    periods: dict[tuple, list] = {}
+    for path, param in _leaves(model.params()):
+        split = [i for i, k in enumerate(path) if isinstance(k, int)]
+        if split:
+            i = split[0]
+            rpath, row = path[:i] + path[i + 1:], path[i]
+        else:
+            rpath, row = path, None
+        if rpath not in ref:
+            raise KeyError("the reference tree has no leaf "
+                           + "/".join(map(str, rpath)))
+        periods.setdefault(rpath, []).append((row, param))
+    extra = set(ref) - set(periods)
+    if extra:
+        raise KeyError("leaves the port's model does not have: "
+                       + ", ".join("/".join(p) for p in sorted(extra)))
+    with torch.no_grad():
+        for rpath, dests in periods.items():
+            arr = ref[rpath]
+            name = "/".join(map(str, rpath))
+            if dests[0][0] is not None:
+                if arr.shape[0] != len(dests):
+                    raise ValueError(f"{name}: {arr.shape[0]} periods in the "
+                                     f"reference, {len(dests)} in the port")
+            for row, param in dests:
+                a = arr if row is None else arr[row]
+                if tuple(a.shape) != tuple(param.shape):
+                    raise ValueError(f"{name}: shape {a.shape} in the "
+                                     f"reference, {tuple(param.shape)} here")
+                if a.dtype.name != str(param.dtype).removeprefix("torch."):
+                    raise TypeError(f"{name}: {a.dtype.name} in the "
+                                    f"reference, {param.dtype} here")
+                param.copy_(torch.from_numpy(np.array(a)))
+    model.refresh()
+    return model

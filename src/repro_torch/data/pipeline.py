@@ -2,7 +2,7 @@
 
 Port of ``_PrefetchError`` and ``prefetch`` from ``repro.data.pipeline``
 (stdlib only); the reference module's ``TokenPipeline`` belongs to the LM
-scaffolding (ROADMAP queue 1 item 14) and is not ported here.
+scaffolding (ROADMAP queue 1 item 14b) and is not ported here.
 """
 from __future__ import annotations
 

@@ -20,7 +20,7 @@ forcing, D with it.  Lanes never share a device unless forced lanes were
 set.
 
 ``make_production_mesh`` and ``make_dev_mesh`` (the LM's 2-D meshes) are
-not ported: they belong to ROADMAP queue 1 item 14.
+not ported: they belong to ROADMAP queue 1 item 14c.
 """
 from __future__ import annotations
 

@@ -35,6 +35,9 @@ def test_port_imports_neither_jax_nor_reference():
         from repro_torch.core import SPCAConfig, fit_components
         from repro_torch.launch import serve_topics, spca_run
         from repro_torch import checkpoint, convert, serve
+        from repro_torch import configs, models, train
+        from repro_torch.launch import serve as lm_serve
+        from repro_torch.testing import lm_record
         import chip_smoke
         rng = np.random.default_rng(0)
         X = rng.poisson(1.0, size=(200, 30)).astype(float)

@@ -8,14 +8,18 @@ certificate, which inverts a nearly singular float32 X (see the
 conditioning caveat of ``repro.core.validate.kkt_gap``), so two LU
 implementations give different gaps for the same X.
 """
+import os
 import re
+import subprocess
 import sys
+import textwrap
 
 import pytest
 
 from repro.launch import spca_run as jrun
 from repro_torch.launch import spca_run as trun
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGS = ["--docs", "2000", "--words", "3000", "--components", "2"]
 
 
@@ -39,6 +43,33 @@ def test_launchers_print_the_same_components(monkeypatch, capsys):
     assert got == want
 
 
+def _reference_in_fresh_interpreter(argv):
+    """The reference launcher's output, run in a child interpreter with
+    one host device and x64 on (as ``tests/conftest.py`` sets it).
+
+    In this process the device count is whatever jax found at its first
+    use: collecting ``tests/test_dryrun_unit.py`` imports
+    ``repro.launch.dryrun``, which sets ``XLA_FLAGS`` to 512 host devices,
+    and the reference's 2-device mesh pass does not give the same
+    components from run to run."""
+    prog = textwrap.dedent("""
+        import sys
+        import jax
+        jax.config.update("jax_enable_x64", True)
+        from repro.launch import spca_run
+        sys.argv = ["spca_run", *sys.argv[1:]]
+        spca_run.main()
+    """)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(REPO, "src")
+    env["JAX_PLATFORMS"] = "cpu"
+    env.pop("XLA_FLAGS", None)
+    r = subprocess.run([sys.executable, "-c", prog, *argv],
+                       capture_output=True, text=True, env=env, timeout=600)
+    assert r.returncode == 0, f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
+    return r.stdout
+
+
 def test_launcher_devices_agrees_with_reference(monkeypatch, capsys,
                                                tmp_path):
     """``--devices 2`` on two forced lanes: the reference launcher's
@@ -48,10 +79,9 @@ def test_launcher_devices_agrees_with_reference(monkeypatch, capsys,
 
     args = [*ARGS[:-1], "3", "--streaming", "--chunk-nnz", "2048",
             "--devices", "2"]
-    monkeypatch.setattr(sys, "argv", ["spca_run", *args, "--store-dir",
-                                      str(tmp_path / "ref")])
-    jrun.main()
-    jout = capsys.readouterr().out
+    jout = _reference_in_fresh_interpreter(
+        [*args, "--store-dir", str(tmp_path / "ref")])
+    assert "falling back to 1" in jout
     monkeypatch.setenv(FORCE_LANES_ENV, "2")
     _, _, diag = trun.main([*args, "--device", "cpu", "--store-dir",
                             str(tmp_path / "port")])
