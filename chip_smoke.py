@@ -74,13 +74,24 @@ words, 5 components, target cardinality 5):
   dense pooled statistics on 4 lanes against 1.
 * the LM serving path, after the rest (``lm_*``): the serve loop on the
   reference's smoke weights of qwen2-0.5b and mamba2-130m against
-  ``lm_serve_smoke.npz`` (``lm_record``); qwen2-0.5b and mamba2-130m at
-  their published widths in float32, decode against forward and the
-  card against the CPU (``lm_full_width``); and ``launch/serve.py --arch
-  qwen2-0.5b`` at full width, B 4 and B 64, with decode tok/s, ms a
-  step, prefill seconds and peak memory beside the card's name and power
-  limit (``lm_serve``).  This path has no kernel of its own: the
-  reference computes it with plain ``@`` and so does the port.
+  ``lm_serve_smoke.npz`` (``lm_record``); qwen2-0.5b, mamba2-130m,
+  whisper-medium and minitron-8b (drawn on the card) at their published
+  widths in float32, decode against forward and the card against the
+  CPU (``lm_full_width``); and ``launch/serve.py --arch qwen2-0.5b`` at
+  full width, B 4 and B 64, with decode tok/s, ms a step, prefill
+  seconds and peak memory beside the card's name and power limit
+  (``lm_serve``);
+* the LM training path, last (``lm_train*``): three train steps on the
+  reference's smoke weights against ``lm_train_smoke.npz``
+  (``lm_train_record``); one qwen2-0.5b train step at full width in
+  float32, the card against the CPU (``lm_train_full_width``); and
+  ``launch/train.py --arch qwen2-0.5b`` at full width, B 8, S 128, 100
+  steps, with ms a step, tokens/s, peak memory and ``train_mfu`` beside
+  the card's name and power limit, a profile, a batch fitted in 10
+  steps, then a child launcher killed by SIGTERM and resumed against two
+  uninterrupted runs (``lm_train``, ``lm_train_resume``).  The LM paths
+  have no kernel of their own: the reference computes them with plain
+  ``@`` and so does the port.
 
 Each phase prints one JSON line; a failed check raises, so the script
 exits non-zero.  The last lines are the kernel table, the card's name
@@ -91,6 +102,7 @@ checkout of the repository.
 """
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3020,13 +3032,24 @@ def phase_lm_record():
         check(res["tokens_equal"], f"lm_record: {arch} greedy tokens differ")
 
 
-def _lm_full_width(arch, batch=2, steps=16, cpu_tokens=4):
+def _mem_available_bytes():
+    for line in open("/proc/meminfo"):
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    return 0
+
+
+def _lm_full_width(arch, batch=2, steps=16, cpu_tokens=4, on_card=False):
     """One config at its published width in float32 dtypes, weights from
-    a seeded generator: CPU forward on the first ``cpu_tokens`` tokens,
-    then the same model moved to the card: forward on them (held to the
-    CPU's), forward on all ``steps`` tokens, and ``steps`` decode steps
-    (held to that forward, as ``tests/test_models.py`` holds the
-    reference)."""
+    a seeded generator: forward on the first ``cpu_tokens`` tokens on the
+    CPU and on the card (held to each other), forward on all ``steps``
+    tokens on the card, and ``steps`` decode steps (held to that forward,
+    as ``tests/test_models.py`` holds the reference).  An encoder-decoder
+    gets seeded ``enc_frames`` (its decode cache holds their cross K/V).
+    ``on_card``: the weights are drawn on the card (a CUDA generator) and
+    copied to the host afterwards, only if the host has room for them
+    (``MemAvailable`` at least 1.5x their bytes); otherwise the CPU side
+    is skipped and the row says why."""
     import numpy as np
     import torch
 
@@ -3034,23 +3057,45 @@ def _lm_full_width(arch, batch=2, steps=16, cpu_tokens=4):
     from repro_torch.models import build_model, param_count
 
     cfg = get_config(arch).scaled(dtypes=LM_F32)
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        size=(batch, steps)),
+                           dtype=torch.int64)
+    frames = None
+    if cfg.is_encoder_decoder:
+        frames = torch.as_tensor(rng.normal(size=(
+            batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+
+    def batch_of(t, n):
+        b = {"tokens": t[:, :n]}
+        if frames is not None:
+            b["enc_frames"] = frames.to(t.device)
+        return b
+
     t0 = time.perf_counter()
-    model = build_model(cfg, device="cpu",
-                        generator=torch.Generator().manual_seed(0))
+    gen = (torch.Generator("cuda") if on_card else torch.Generator()
+           ).manual_seed(0)
+    model = build_model(cfg, device="cuda" if on_card else "cpu",
+                        generator=gen)
     init_s = time.perf_counter() - t0
-    toks = torch.as_tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, size=(batch, steps)), dtype=torch.int64)
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    cpu_logits, cpu_skipped = None, None
     with torch.no_grad():
-        cpu_logits = model({"tokens": toks[:, :cpu_tokens]})[0]
-        model.to("cuda")
+        if not on_card:
+            cpu_logits = model(batch_of(toks, cpu_tokens))[0]
+            model.to("cuda")
         toks = toks.cuda()
-        short = model({"tokens": toks[:, :cpu_tokens]})[0]
+        short = model(batch_of(toks, cpu_tokens))[0]
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        full = model({"tokens": toks})[0]
+        full = model(batch_of(toks, steps))[0]
         torch.cuda.synchronize()
         fwd_ms = (time.perf_counter() - t1) * 1e3
-        cache = model.init_cache(batch, steps + 1, dtype=torch.float32)
+        if cfg.is_encoder_decoder:
+            cache = model.init_cache(batch_of(toks, 1), steps + 1,
+                                     dtype=torch.float32)
+        else:
+            cache = model.init_cache(batch, steps + 1, dtype=torch.float32)
         outs = []
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -3060,44 +3105,67 @@ def _lm_full_width(arch, batch=2, steps=16, cpu_tokens=4):
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t1) * 1e3 / steps
         dec = torch.stack(outs, 1)
+        peak = torch.cuda.max_memory_allocated()
+        del cache, outs
+        if on_card:
+            avail = _mem_available_bytes()
+            if avail >= 1.5 * nbytes:
+                model.to("cpu")
+                cpu_logits = model(batch_of(toks.cpu(), cpu_tokens))[0]
+            else:
+                cpu_skipped = (f"MemAvailable {avail} bytes < 1.5 x the "
+                               f"{nbytes} bytes of weights")
     scale = float(full.abs().max())
-    cpu_scale = float(cpu_logits.abs().max())
     row = dict(
-        arch=arch, params=param_count(model), batch=batch, steps=steps,
-        init_s=init_s, forward_ms=fwd_ms, decode_ms_per_step=step_ms,
+        arch=arch, params=param_count(model), weight_bytes=nbytes,
+        batch=batch, steps=steps, cpu_tokens=cpu_tokens,
+        built_on="cuda" if on_card else "cpu", init_s=init_s,
+        forward_ms=fwd_ms, decode_ms_per_step=step_ms,
+        max_memory_allocated=peak,
         finite=bool(torch.isfinite(full).all() and torch.isfinite(dec).all()),
         decode_vs_forward_rel=float((dec - full).abs().max()) / max(scale, 1.0),
-        card_vs_cpu_rel=float((short.cpu() - cpu_logits).abs().max())
-        / cpu_scale,
-        max_abs_logit=scale)
-    del model, cache, outs, dec, full, short
+        card_vs_cpu_rel=None if cpu_logits is None else float(
+            (short.cpu() - cpu_logits).abs().max())
+        / float(cpu_logits.abs().max()),
+        cpu_skipped=cpu_skipped, max_abs_logit=scale)
+    del model, dec, full, short
     _lm_free()
     return row
 
 
 def phase_lm_full_width():
-    """qwen2-0.5b and mamba2-130m at their published widths in float32
-    (TF32 off): decode of 16 tokens at B 2 equals ``forward`` within
-    2e-3 x max |logits|, and the card's logits on 4 tokens equal the
-    port's CPU logits on the same weights within 1e-4 x max |logits|."""
+    """qwen2-0.5b, mamba2-130m, whisper-medium (B 1: its encoder runs on
+    1,500 frames) and minitron-8b (drawn on the card: 9.9 B float32
+    weights, 40 GB) at their published widths in float32 (TF32 off):
+    decode of 16 tokens equals ``forward`` within 2e-3 x max |logits|,
+    and the card's logits on 4 tokens equal the port's CPU logits on the
+    same weights within 1e-4 x max |logits| (minitron's CPU side only if
+    the host has the memory)."""
     import torch
 
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
     try:
-        rows = [_lm_full_width(a) for a in ("qwen2-0.5b", "mamba2-130m")]
+        for arch, kw in (("qwen2-0.5b", {}), ("mamba2-130m", {}),
+                         ("whisper-medium", {"batch": 1}),
+                         ("minitron-8b", {"on_card": True})):
+            torch.cuda.reset_peak_memory_stats()
+            rows.append(_lm_full_width(arch, **kw))
+            emit("lm_full_width", **rows[-1])
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
-    for row in rows:
-        emit("lm_full_width", **row)
     for row in rows:
         a = row["arch"]
         check(row["finite"], f"lm_full_width: {a} logits not finite")
         check(row["decode_vs_forward_rel"] < 2e-3,
               f"lm_full_width: {a} decode != forward "
               f"({row['decode_vs_forward_rel']})")
-        check(row["card_vs_cpu_rel"] < 1e-4,
-              f"lm_full_width: {a} card != CPU ({row['card_vs_cpu_rel']})")
+        check(row["card_vs_cpu_rel"] is not None or row["cpu_skipped"],
+              f"lm_full_width: {a} has no CPU side")
+        if row["card_vs_cpu_rel"] is not None:
+            check(row["card_vs_cpu_rel"] < 1e-4,
+                  f"lm_full_width: {a} card != CPU ({row['card_vs_cpu_rel']})")
 
 
 def phase_lm_serve():
@@ -3180,6 +3248,339 @@ def _lm_serve_profile(batch=4, steps=8):
                "name": k[2]} for k in ev[:6]])
     del model, cache
     _lm_free()
+
+
+H100_BF16_FLOPS = 989e12        # dense bf16 on the tensor cores, SXM data sheet
+TRAIN_ARGS = ["--arch", "qwen2-0.5b", "--batch", "8", "--seq", "128"]
+
+
+def phase_lm_train_record():
+    """Three train steps on the card from the training record's weights
+    (``lm_train_smoke.npz``: the reference's steps on the qwen2-0.5b and
+    mamba2-130m smoke configs in float32), TF32 off, held to the record
+    with `lm_train_record.compare`'s tolerances."""
+    import torch
+
+    from repro_torch.testing import lm_train_record as ltr
+
+    t0 = time.perf_counter()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rec = ltr.load_record()
+        out = {arch: ltr.compare(rec[arch], ltr.run_record(
+            arch, rec[arch]["init"], "cuda")) for arch in ltr.ARCHS}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    emit("lm_train_record", seconds=time.perf_counter() - t0,
+         metric_rtol=ltr.METRIC_RTOL, mu_tol=ltr.MOMENT_TOL,
+         nu_tol=ltr.NU_TOL, param_atol=ltr.PARAM_ATOL, archs=out)
+    for arch, res in out.items():
+        check(ltr.passes(res), f"lm_train_record: {arch} {res}")
+    _lm_free()
+
+
+def phase_lm_train_full_width(batch=2, seq=32):
+    """qwen2-0.5b at its published width in float32 (TF32 off), one set
+    of weights (seed 0): one train step on the CPU and one on the card on
+    the same batch (``TokenPipeline`` batch 0); the card's ``loss`` and
+    ``grad_norm`` within 1e-5 relative of the CPU's, each first-moment
+    leaf within 1e-4 of its largest magnitude."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import _leaves
+    from repro_torch.train import init_state, make_train_step
+
+    cfg = get_config("qwen2-0.5b").scaled(dtypes=LM_F32)
+    toks = torch.as_tensor(TokenPipeline(PipelineConfig(
+        vocab_size=cfg.vocab_size, batch=batch, seq_len=seq)).batch_at(0))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = build_model(cfg, device="cpu")
+        card = copy.deepcopy(cpu).to("cuda")
+        out = {}
+        for name, model in (("cpu", cpu), ("cuda", card)):
+            t0 = time.perf_counter()
+            state, m = make_train_step(model)(init_state(model),
+                                              {"tokens": toks})
+            loss = float(m["loss"])
+            out[name] = dict(seconds=time.perf_counter() - t0, loss=loss,
+                             grad_norm=float(m["grad_norm"]),
+                             mu=[t.cpu() for t in _leaves(state.opt.mu)])
+            del state
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    c, g = out["cpu"], out["cuda"]
+    mu_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                 for a, b in zip(g["mu"], c["mu"]))
+    row = dict(arch="qwen2-0.5b", batch=batch, seq=seq,
+               cpu_s=c["seconds"], card_s=g["seconds"],
+               loss_cpu=c["loss"], loss_card=g["loss"],
+               loss_rel=abs(g["loss"] - c["loss"]) / abs(c["loss"]),
+               grad_norm_cpu=c["grad_norm"], grad_norm_card=g["grad_norm"],
+               grad_norm_rel=abs(g["grad_norm"] - c["grad_norm"])
+               / abs(c["grad_norm"]), mu_rel=mu_rel)
+    emit("lm_train_full_width", **row)
+    del cpu, card, out
+    _lm_free()
+    check(row["loss_rel"] < 1e-5, f"lm_train_full_width: loss {row}")
+    check(row["grad_norm_rel"] < 1e-5, f"lm_train_full_width: grad_norm {row}")
+    check(mu_rel < 1e-4, f"lm_train_full_width: mu {mu_rel}")
+
+
+def _train_child(ckpt_dir, steps, *, ckpt_every=1000):
+    """``launch/train.py`` at qwen2-0.5b's width in a child process."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_ARGS,
+         "--steps", str(steps), "--ckpt-every", str(ckpt_every),
+         "--ckpt-dir", ckpt_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
+def _finish(proc, timeout=600):
+    out, err = proc.communicate(timeout=timeout)
+    check(proc.returncode == 0,
+          f"lm_train child exited {proc.returncode}: {err[-2000:]}")
+    return out.splitlines()
+
+
+def _ckpt_max_diff(dir_a, dir_b, step):
+    """Largest absolute difference over every leaf of two checkpoints of
+    one step (parameters, moments, count, step), read a member at a
+    time."""
+    import numpy as np
+
+    name = os.path.join(f"step_{step:09d}", "host_00000.npz")
+    worst = 0.0
+    with np.load(os.path.join(dir_a, name)) as a, \
+            np.load(os.path.join(dir_b, name)) as b:
+        check(a.files == b.files, "lm_train: checkpoints differ in leaves")
+        for k in a.files:
+            worst = max(worst, float(np.abs(
+                a[k].astype(np.float64) - b[k]).max(initial=0.0)))
+    return worst
+
+
+def _lm_train_kill_resume(root, steps=10, kill_after=0):
+    """Two uninterrupted ``steps``-step runs of the launcher (their
+    difference is the card's run-to-run floor) beside one sent SIGTERM
+    after step ``kill_after``'s metrics line (the launcher logs every
+    10th step; it must checkpoint after the step the signal lands in,
+    print ``preempted`` and exit 0), then run again to ``steps`` while the
+    other two finish; the largest difference between the resumed and the
+    uninterrupted checkpoint of step ``steps``."""
+    import ast
+    import signal
+
+    dirs = {k: os.path.join(root, k) for k in ("a", "b", "killed")}
+    t0 = time.perf_counter()
+    procs = [_train_child(dirs["a"], steps), _train_child(dirs["b"], steps),
+             _train_child(dirs["killed"], steps)]
+    try:
+        killed, lines = procs[2], []
+        for line in killed.stdout:
+            lines.append(line.rstrip("\n"))
+            if line.startswith("{") and ast.literal_eval(line).get(
+                    "step") == kill_after and "'metrics'" in line:
+                killed.send_signal(signal.SIGTERM)
+                break
+        out, err = killed.communicate(timeout=600)
+        lines += out.splitlines()
+        check(killed.returncode == 0,
+              f"lm_train: killed child exited {killed.returncode}: "
+              f"{err[-2000:]}")
+        events = [ast.literal_eval(x) for x in lines if x.startswith("{")]
+        pre = [e for e in events if e["kind"] == "preempted"]
+        check(len(pre) == 1, f"lm_train: no preempted event in {lines[-4:]}")
+        stopped_at = pre[0]["step"]
+        t1 = time.perf_counter()
+        procs.append(_train_child(dirs["killed"], steps))   # the rerun
+        for p in procs[:2]:
+            _finish(p)
+        resumed = _finish(procs[3])
+        resumed_s = time.perf_counter() - t1
+        wall_s = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    events = [ast.literal_eval(x) for x in resumed if x.startswith("{")]
+    check(events[0]["kind"] == "resume" and events[0]["step"] == stopped_at
+          and resumed[-1] == f"final step {steps}",
+          f"lm_train: the rerun did not resume at {stopped_at}: {resumed[:2]}")
+    floor = _ckpt_max_diff(dirs["a"], dirs["b"], steps)
+    diff = _ckpt_max_diff(dirs["a"], dirs["killed"], steps)
+    return dict(steps=steps, sigterm_after_step=kill_after,
+                preempted_at=stopped_at, run_to_run_max_abs_diff=floor,
+                resumed_max_abs_diff=diff, wall_s=wall_s, resume_s=resumed_s)
+
+
+def _lm_train_profile(model, step, state, batch, steps=3):
+    """Where a train step's time goes: ``steps`` steps under
+    torch.profiler after the launcher's run (same model and batch shape):
+    wall ms a step, device-busy ms a step, device launches a step, the
+    largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = _device_events(prof)
+    busy_ms = sum(k[0] for k in ev)
+    return dict(steps=steps, wall_ms_per_step=wall * 1e3 / steps,
+                device_busy_ms_per_step=busy_ms / steps,
+                device_idle_share=1 - busy_ms / (wall * 1e3),
+                device_events_per_step=sum(k[1] for k in ev) / steps,
+                top=[{"ms_per_step": k[0] / steps,
+                      "count_per_step": k[1] / steps, "name": k[2]}
+                     for k in ev[:8]])
+
+
+def _lm_train_one_batch(step, state, batch, steps=10):
+    """``steps`` more train steps on one batch (the run's last): the
+    losses, which must fall as the model fits the batch."""
+    out = []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        out.append(float(m["loss"]))
+    return out
+
+
+def _lm_train_small_vocab(vocab=512, steps=100):
+    """The run that ``lm_train``'s flat loss is held against: the same
+    train step (default AdamW and schedule, float32 parameters, bfloat16
+    compute) at qwen2-0.5b's published width and depth with the
+    vocabulary cut to ``vocab`` words, ``steps`` steps on the stream's
+    batches (B 8, S 128) from seeded weights.  Its loss must fall (the
+    mean of the last 10 below the first 10's).  A batch's 1,024 tokens
+    are twice a 512-word vocabulary, and under 1 % of the full one."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.train import init_state, make_train_step
+
+    model = build_model(get_config("qwen2-0.5b").scaled(vocab_size=vocab),
+                        device="cuda")
+    state, step = init_state(model), make_train_step(model)
+    pipe = TokenPipeline(PipelineConfig(vocab_size=vocab, batch=8,
+                                        seq_len=128))
+    t0 = time.perf_counter()
+    losses = []
+    for t in range(steps):
+        state, m = step(state, {"tokens": torch.as_tensor(pipe.batch_at(t))})
+        losses.append(m["loss"])
+    loss = np.array([float(x) for x in losses])
+    wall = time.perf_counter() - t0
+    del model, state, step, losses
+    _lm_free()
+    return dict(vocab=vocab, steps=steps, wall_s=wall,
+                ln_vocab=float(np.log(vocab)),
+                loss_first10=float(loss[:10].mean()),
+                loss_last10=float(loss[-10:].mean()),
+                losses_every_10=loss[::10].tolist(),
+                finite=bool(np.isfinite(loss).all()))
+
+
+def phase_lm_train():
+    """``launch/train.py --arch qwen2-0.5b`` at its published width with
+    its own dtypes (float32 parameters, bfloat16 compute), ``--batch 8
+    --seq 128 --steps 100 --ckpt-every 50``: every loss finite; the means
+    of the first and last 10 losses, reported and not gated (at the full
+    151,936-word vocabulary the loss stays near ln V in 100 steps); the
+    same 100 steps with the vocabulary cut to 512 words, whose loss must
+    fall (`_lm_train_small_vocab`); 10 steps on the run's last batch,
+    whose loss must fall by more than 1 (the model fits a batch); the
+    step's ms (median of steps 10-99 of the trainer's own timing, each
+    ending in a synchronize), tokens/s, peak device memory and
+    ``train_mfu`` (``analysis.train_model_flops`` over the median step,
+    over 989 TFLOP/s) beside the card's name and power limit; a profile
+    of 3 more steps; then kill and resume (see `_lm_train_kill_resume`),
+    gated on the run-to-run floor."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import analysis
+    from repro_torch.launch import train as launcher
+
+    smi = nvidia_smi()
+    cfg = get_config("qwen2-0.5b")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = launcher.main([*TRAIN_ARGS, "--steps", "100", "--ckpt-every",
+                             "50", "--ckpt-dir", os.path.join(root, "run")])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        trainer = res["trainer"]
+        kinds = [(e["kind"], e["step"]) for e in trainer.events]
+        _, loss, times = (np.array(c) for c in zip(*trainer.history))
+        step_s = float(np.median(times[10:]))
+        p90_s = float(np.percentile(times[10:], 90))
+        flops = analysis.train_model_flops(cfg, 8, 128)
+        step, state = trainer.train_step, res["state"]
+        batch = trainer.make_batch(trainer.pipeline.batch_at(99))
+        prof = _lm_train_profile(step.model, step, state, batch)
+        fit = _lm_train_one_batch(step, state, batch)
+        del res, trainer, step, state, batch
+        _lm_free()
+        witness = _lm_train_small_vocab()
+        row = dict(arch="qwen2-0.5b", batch=8, seq=128, steps=len(loss),
+                   wall_s=wall, step_ms_median=step_s * 1e3,
+                   step_ms_p90=p90_s * 1e3, first_step_ms=times[0] * 1e3,
+                   tokens_per_s=8 * 128 / step_s,
+                   max_memory_allocated=peak, model_flops_per_step=flops,
+                   train_mfu=flops / step_s / H100_BF16_FLOPS,
+                   loss_first10=float(loss[:10].mean()),
+                   loss_last10=float(loss[-10:].mean()),
+                   losses_every_10=loss[::10].tolist(), events=kinds,
+                   one_batch_losses=fit, vocab_512=witness, profile=prof,
+                   card=smi)
+        emit("lm_train", **row)
+        print(f"lm_train qwen2-0.5b B 8 S 128: {row['step_ms_median']:.1f} "
+              f"ms a step (median, steps 10-99), {row['tokens_per_s']:.0f} "
+              f"tokens/s, train_mfu {row['train_mfu']:.4f}, max memory "
+              f"{peak / 2**30:.2f} GiB, loss {row['loss_first10']:.3f} -> "
+              f"{row['loss_last10']:.3f} (vocabulary 512: "
+              f"{witness['loss_first10']:.3f} -> "
+              f"{witness['loss_last10']:.3f}) on {smi}", flush=True)
+        check(len(loss) == 100 and np.isfinite(loss).all(),
+              "lm_train: a loss is not finite")
+        check(witness["finite"]
+              and witness["loss_last10"] < witness["loss_first10"],
+              f"lm_train: at a 512-word vocabulary the loss did not fall: "
+              f"{witness}")
+        check(np.isfinite(fit).all() and fit[-1] < fit[0] - 1.0,
+              f"lm_train: {len(fit)} steps on one batch did not fit it: "
+              f"{fit}")
+        check(kinds[-1] == ("checkpoint", 100)
+              and ("checkpoint", 50) in kinds,
+              f"lm_train: checkpoints {kinds}")
+        shutil.rmtree(os.path.join(root, "run"))
+        kr = _lm_train_kill_resume(root)
+    emit("lm_train_resume", **kr, card=smi)
+    check(kr["resumed_max_abs_diff"] <= kr["run_to_run_max_abs_diff"],
+          f"lm_train: the resumed run differs by "
+          f"{kr['resumed_max_abs_diff']}, more than two uninterrupted runs "
+          f"({kr['run_to_run_max_abs_diff']})")
 
 
 def main():
@@ -3269,6 +3670,10 @@ def main():
     phase_lm_record()
     phase_lm_full_width()
     phase_lm_serve()
+    # the LM training path (no kernel of its own either)
+    phase_lm_train_record()
+    phase_lm_train_full_width()
+    phase_lm_train()
     kernels = [{
         "name": "bcd_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bcd_fused.cu",

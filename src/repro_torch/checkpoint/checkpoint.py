@@ -15,8 +15,11 @@ Port of ``repro.checkpoint.checkpoint``.  Format (one directory per step):
   subtree) with the path parts joined by ``/``.  So the npz member order
   and the manifest's ``leaves`` order match the reference's, and a
   checkpoint written by either package restores in the other.  Trees are
-  nested dicts, lists and tuples; leaves are tensors, numpy arrays or
-  scalars.
+  nested dicts, lists, tuples and NamedTuples (a training state is
+  ``TrainState(params, opt=OptState(mu, nu, count), step)``); a
+  NamedTuple's fields are keyed ``.<field>`` in field order, as jax keys
+  them (``.params/embed``, ``.opt/.count``).  Leaves are tensors, numpy
+  arrays or scalars.
 - `restore` returns tensors on the CPU, or on ``device`` when one is
   given; the reference's elastic placement onto a jax mesh has no
   counterpart here.
@@ -48,12 +51,18 @@ def _step_of(dirname: str) -> int | None:
         return None
 
 
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def _flatten(tree, prefix: tuple = ()) -> dict:
     """``{path: leaf}`` in jax's flattening order (see the module note)."""
     if tree is None:
         return {}
     if isinstance(tree, dict):
         items = ((str(k), tree[k]) for k in sorted(tree))
+    elif _is_namedtuple(tree):
+        items = ((f".{f}", v) for f, v in zip(tree._fields, tree))
     elif isinstance(tree, (list, tuple)):
         items = ((str(i), v) for i, v in enumerate(tree))
     else:
@@ -71,6 +80,9 @@ def _unflatten(tree, leaves: dict, prefix: tuple = ()):
     if isinstance(tree, dict):
         return {k: _unflatten(tree[k], leaves, prefix + (str(k),))
                 for k in tree}
+    if _is_namedtuple(tree):
+        return type(tree)(*(_unflatten(v, leaves, prefix + (f".{f}",))
+                            for f, v in zip(tree._fields, tree)))
     if isinstance(tree, (list, tuple)):
         out = [_unflatten(v, leaves, prefix + (str(i),))
                for i, v in enumerate(tree)]

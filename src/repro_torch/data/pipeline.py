@@ -1,14 +1,67 @@
-"""Background-thread prefetch for the streaming corpus passes.
+"""LM token pipeline and the background-thread prefetch of the streaming
+corpus passes (port of ``repro.data.pipeline``, numpy and the stdlib
+only).
 
-Port of ``_PrefetchError`` and ``prefetch`` from ``repro.data.pipeline``
-(stdlib only); the reference module's ``TokenPipeline`` belongs to the LM
-scaffolding (ROADMAP queue 1 item 14b) and is not ported here.
+Fault-tolerance contract: batch ``t`` is a pure function of ``(seed, t)``
+(`TokenPipeline.batch_at`, seeded by ``SeedSequence([seed, step,
+host_lo])``, the reference's draws bit for bit), so restoring a checkpoint
+at step ``t`` resumes the exact data stream with no replay buffer or
+loader state.  The port runs in one process, so `host_slice` defaults to
+process 0 of 1: the whole batch.
+
+The synthetic stream is not uniform noise: tokens follow a per-sequence
+random walk over the vocabulary with occasional resets, giving the LM a
+learnable short-range structure.
 """
 from __future__ import annotations
 
 import queue
 import threading
 import time
+from dataclasses import dataclass
+
+import numpy as np
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    vocab_size: int
+    batch: int          # global batch (sequences)
+    seq_len: int
+    seed: int = 0
+    walk_step: int = 7  # random-walk stride in token space
+
+
+class TokenPipeline:
+    """Stateless synthetic LM data: ``batch_at(t)`` is pure in (seed, t)."""
+
+    def __init__(self, cfg: PipelineConfig):
+        self.cfg = cfg
+
+    def batch_at(self, step: int, *, host_lo: int = 0,
+                 host_hi: int | None = None) -> np.ndarray:
+        """Rows ``host_lo:host_hi`` of batch ``step``, (rows, seq_len)
+        int32."""
+        cfg = self.cfg
+        hi = cfg.batch if host_hi is None else host_hi
+        n = hi - host_lo
+        rng = np.random.default_rng(
+            np.random.SeedSequence([cfg.seed, step, host_lo])
+        )
+        start = rng.integers(0, cfg.vocab_size, size=(n, 1))
+        steps = rng.integers(-cfg.walk_step, cfg.walk_step + 1,
+                             size=(n, cfg.seq_len))
+        reset = rng.random((n, cfg.seq_len)) < 0.02
+        jump = rng.integers(0, cfg.vocab_size, size=(n, cfg.seq_len))
+        walk = np.cumsum(steps, axis=1) + start
+        toks = np.where(reset, jump, walk) % cfg.vocab_size
+        return toks.astype(np.int32)
+
+    def __iter__(self):
+        t = 0
+        while True:
+            yield self.batch_at(t)
+            t += 1
 
 
 class _PrefetchError:
@@ -126,3 +179,11 @@ def prefetch(it, size: int = 2, *, stats: dict | None = None):
             except queue.Empty:
                 break
         t.join(timeout=5.0)
+
+
+def host_slice(global_batch: int, *, process_index: int = 0,
+               process_count: int = 1) -> tuple[int, int]:
+    """Row range of the global batch a process should materialise (the
+    port runs in one process: process 0 of 1 by default)."""
+    per = global_batch // process_count
+    return process_index * per, (process_index + 1) * per

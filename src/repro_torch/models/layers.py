@@ -50,9 +50,15 @@ def param_tree(module):
 
 
 def normal(gen, shape, scale, dtype, device):
-    """Standard normal draws from ``gen`` (a CPU generator, so the same
-    seed gives the same weights on every device) times ``scale``."""
-    w = torch.randn(shape, generator=gen, dtype=F32) * scale
+    """Standard normal draws from ``gen`` times ``scale``.  A CPU generator
+    (the default) draws on the CPU, so the same seed gives the same weights
+    on every device; a CUDA generator draws on its card, copying nothing
+    through the host.  On the ``meta`` device nothing is drawn: the
+    tensor has a shape and a dtype and no storage."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
+    w = torch.randn(shape, generator=gen, dtype=F32, device=gen.device) \
+        * scale
     return w.to(device=device, dtype=dtype)
 
 

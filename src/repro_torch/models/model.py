@@ -87,7 +87,8 @@ class _Model(nn.Module):
     def _init_common(self, cfg, device, generator):
         self.cfg = cfg.validate()
         self._compute = None
-        return (resolve(device),
+        meta = device is not None and torch.device(device).type == "meta"
+        return (torch.device("meta") if meta else resolve(device),
                 generator if generator is not None
                 else torch.Generator().manual_seed(0))
 
@@ -316,7 +317,10 @@ class EncDec(_Model):
 
 def build_model(cfg, *, device=None, generator=None):
     """`EncDec` or `LM` for ``cfg`` on ``device`` (the card by default),
-    its weights drawn from ``generator`` (a CPU `torch.Generator`; default
-    seed 0), so one seed gives the same weights on every device."""
+    its weights drawn from ``generator`` (a CPU `torch.Generator`, default
+    seed 0, so one seed gives the same weights on every device; a CUDA
+    generator draws them on its card).  ``device="meta"`` builds the
+    shapes only: no weight is drawn and no storage allocated (parameter
+    counts of configs that fit no host, `launch.analysis`)."""
     cls = EncDec if cfg.is_encoder_decoder else LM
     return cls(cfg, device=device, generator=generator)

@@ -18,6 +18,7 @@ from typing import Any, NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import mamba2, moe as moe_lib
 from .layers import (
@@ -133,22 +134,37 @@ def run_stack(
     caches=None, decode=False,
 ):
     """Run the periods in order. ``params`` (and ``caches`` when decoding)
-    are lists over periods.  Returns (x, aux, new_caches).  The
-    reference's activation checkpointing (``cfg.remat``) does not change
-    what is computed and is not used by serving."""
-    aux = ZERO_AUX(x.device)
-    new_caches = [] if decode else None
-    for n in range(stack.n_periods):
-        p = params[n]
+    are lists over periods.  Returns (x, aux, new_caches).
+
+    Activation checkpointing as the reference's ``cfg.remat == "full"``
+    (``jax.checkpoint`` of each period): while autograd is on and not
+    decoding, each period runs under ``torch.utils.checkpoint``
+    (non-reentrant), which keeps only its input and recomputes the rest
+    in the backward pass.  It changes no value."""
+    remat = cfg.remat == "full" and not decode and torch.is_grad_enabled()
+
+    def period(p, x, aux, cache):
         ncs = {}
         for i, spec in enumerate(stack.period):
             x, a, nc = apply_block(
                 p[f"b{i}"], x, spec, cfg, positions=positions, enc_out=enc_out,
-                cache=caches[n][f"b{i}"] if decode else None, decode=decode,
+                cache=cache[f"b{i}"] if decode else None, decode=decode,
             )
             if a is not None:
                 aux = _acc_aux(aux, a)
             ncs[f"b{i}"] = nc
+        return x, aux, ncs
+
+    aux = ZERO_AUX(x.device)
+    new_caches = [] if decode else None
+    for n in range(stack.n_periods):
+        cache = caches[n] if decode else None
+        if remat:
+            x, aux, ncs = checkpoint(period, params[n], x, aux, cache,
+                                     use_reentrant=False,
+                                     preserve_rng_state=False)
+        else:
+            x, aux, ncs = period(params[n], x, aux, cache)
         if decode:
             new_caches.append(ncs)
     return x, aux, new_caches

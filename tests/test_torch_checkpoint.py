@@ -1,8 +1,12 @@
 """The port's checkpoint format (``repro_torch.checkpoint``): the cases of
-the reference's ``tests/test_checkpoint.py`` but the trainer's (the LM
-trainer is not ported), and checkpoints saved by one package restored by
-the other, both ways, with byte-identical ``manifest.json`` and the same
-npz members in the same order with equal dtypes, shapes and values.
+the reference's ``tests/test_checkpoint.py`` (its trainer case,
+``test_trainer_resume_exact``, and the trainer's checkpoints crossing
+packages are in ``tests/test_torch_trainer.py``), and checkpoints saved by
+one package restored by the other, both ways, with byte-identical
+``manifest.json`` and the same npz members in the same order with equal
+dtypes, shapes and values: nested dicts, lists and tuples, and a training
+state (``TrainState(params, opt=OptState(mu, nu, count), step)``, whose
+NamedTuple fields jax keys ``.params``, ``.opt/.count``).
 
 The npz bytes themselves are not compared: ``np.savez`` stamps each zip
 member with the current time, so two saves by the same package differ.
@@ -11,6 +15,7 @@ expected one raises ValueError here (the reference asserts).
 """
 import json
 import os
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -168,3 +173,76 @@ def test_checkpoint_written_by_one_package_restores_in_the_other(tmp_path,
         have = np.asarray(have)
         assert have.dtype == np.asarray(want).dtype
         np.testing.assert_array_equal(have, want)
+
+
+class _Pair(NamedTuple):
+    b: object
+    a: object
+
+
+def test_namedtuple_fields_are_keyed_like_jax(tmp_path):
+    t = {"x": _Pair(b=np.ones(2, np.float32), a=[np.zeros(3), (np.int32(4),)])}
+    flat = ck._flatten(t)
+    want, _ = jax.tree_util.tree_flatten_with_path(t)
+    assert list(flat) == ["/".join(str(getattr(k, "key", getattr(
+        k, "idx", k))) for k in path) for path, _ in want]
+    assert list(flat) == ["x/.b", "x/.a/0", "x/.a/1/0"]
+    ck.save(str(tmp_path), 1, t)
+    r = ck.restore(str(tmp_path), 1, t)
+    assert type(r["x"]) is _Pair and isinstance(r["x"].a, list)
+    assert isinstance(r["x"].a[1], tuple) and r["x"].a[1][0].dtype == torch.int32
+    np.testing.assert_array_equal(r["x"].b.numpy(), t["x"].b)
+
+
+_TINY = dict(name="t", family="dense", n_layers=2, d_model=32, n_heads=4,
+             n_kv_heads=2, d_ff=64, vocab_size=128,
+             dtypes=("float32", "float32"))
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_train_state_written_by_one_package_restores_in_the_other(tmp_path,
+                                                                  writer):
+    from repro.configs.base import ModelConfig as JModelConfig
+    from repro.models import build_model as jbuild
+    from repro.train import init_state as jinit, make_train_step
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.convert import (
+        train_state_from_reference, train_state_to_reference,
+    )
+    from repro_torch.models import build_model
+
+    jm = jbuild(JModelConfig(**_TINY))
+    toks = np.random.default_rng(0).integers(0, 128, (2, 8)).astype(np.int32)
+    state = jinit(jm, jax.random.PRNGKey(0))
+    state, _ = jax.jit(make_train_step(jm))(state, {"tokens": jnp.asarray(toks)})
+    jnp_state = jax.tree.map(np.asarray, state)
+    model = build_model(ModelConfig(**_TINY), device="cpu")
+    tstate = train_state_from_reference(model, jnp_state)
+    assert int(tstate.step) == 1 and int(tstate.opt.count) == 1
+
+    ref_dir, port_dir = str(tmp_path / "ref"), str(tmp_path / "port")
+    d_ref = jck.save(ref_dir, 1, state)
+    d_port = ck.save(port_dir, 1, train_state_to_reference(tstate))
+    manifest = open(os.path.join(d_ref, "manifest.json")).read()
+    assert manifest == open(os.path.join(d_port, "manifest.json")).read()
+    keys = list(json.loads(manifest)["leaves"])
+    assert keys[0] == ".params/embed" and keys[-2:] == [".opt/.count", ".step"]
+    assert ".opt/.mu/stacks/s0/b0/mixer_attn/wq" in keys
+    _same_npz(d_ref, d_port)
+    if writer == "reference":
+        like = train_state_to_reference(tstate, like=True)
+        got = train_state_from_reference(
+            build_model(ModelConfig(**_TINY), device="cpu",
+                        generator=torch.Generator().manual_seed(1)),
+            ck.restore(ref_dir, 1, like))
+        got = jax.tree.map(np.asarray, train_state_to_reference(got))
+    else:
+        got = jck.restore(port_dir, 1, jax.eval_shape(lambda: state))
+    want = jax.tree_util.tree_leaves_with_path(jnp_state)
+    have = jax.tree_util.tree_leaves_with_path(got)
+    assert [jax.tree_util.keystr(p) for p, _ in have] == \
+        [jax.tree_util.keystr(p) for p, _ in want]
+    for (path, a), (_, b) in zip(have, want):
+        a = np.asarray(a)
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        np.testing.assert_array_equal(a, b)

@@ -11,7 +11,9 @@ every architecture's ``SMOKE`` config, on weights carried across by
   bfloat16 intermediates at different points, and the difference grows
   with depth);
 - the compute-dtype copy has, leaf by leaf, the dtype of the reference's
-  ``cast_params`` output (the stacked-leaf rule of `cast_params`).
+  ``cast_params`` output (the stacked-leaf rule of `cast_params`);
+- `lm_params_to_reference` inverts `lm_params_from_reference`: the
+  reference's tree comes back exactly (keys, shapes, dtypes, values).
 
 Then the port-only counterparts of ``tests/test_models.py``: decode equals
 forward (dense, sliding window, mamba, hybrid MoE, encoder-decoder), the
@@ -30,7 +32,9 @@ from repro.models import build_model as jbuild, cast_params as jcast
 from repro.train import make_serve_step as jserve_step
 from repro_torch.configs import get_smoke_config as tsmoke
 from repro_torch.configs.base import ModelConfig
-from repro_torch.convert import lm_params_from_reference
+from repro_torch.convert import (
+    lm_params_from_reference, lm_params_to_reference,
+)
 from repro_torch.models import build_model, param_count
 from repro_torch.models.layers import flash_attention
 from repro_torch.train import make_serve_step
@@ -192,6 +196,18 @@ def test_compute_copy_has_the_reference_cast_dtypes(refs, arch):
         got = _leaf_dtypes(m.compute_params())
     assert got == want
     assert "bfloat16" in got.values() and "float32" in got.values()
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_params_to_reference_inverts_from_reference(refs, arch):
+    r = _ref(refs, arch)
+    got = lm_params_to_reference(r.port())
+    want = r.tree
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(got),
+                            jax.tree.leaves(want)):
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        np.testing.assert_array_equal(a, b, err_msg=str(path))
 
 
 @pytest.mark.parametrize("smoke", [False, True])

@@ -38,6 +38,13 @@ def test_port_imports_neither_jax_nor_reference():
         from repro_torch import configs, models, train
         from repro_torch.launch import serve as lm_serve
         from repro_torch.testing import lm_record
+        from repro_torch import optim
+        from repro_torch.optim import adamw, compression, schedule
+        from repro_torch.train import trainer
+        from repro_torch.launch import analysis, train as lm_train
+        from repro_torch.testing import lm_train_record
+        assert analysis.count_params(configs.get_config("qwen2-0.5b"))[
+            "total"] == 494032768
         import chip_smoke
         rng = np.random.default_rng(0)
         X = rng.poisson(1.0, size=(200, 30)).astype(float)
@@ -91,6 +98,9 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
         serve_topics.main(["--smoke", "--docs", "50", "--words", "60"])
     with pytest.raises(device.DeviceUnavailable):
         ModelRegistry(None)
+    from repro_torch.launch import train as lm_train
+    with pytest.raises(device.DeviceUnavailable):
+        lm_train.main(["--arch", "qwen2-0.5b", "--smoke", "--steps", "1"])
     with pytest.raises(device.DeviceUnavailable):
         device.resolve("cuda:0")
     assert device.resolve("cpu").type == "cpu"
