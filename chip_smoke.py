@@ -89,9 +89,15 @@ words, 5 components, target cardinality 5):
   steps, with ms a step, tokens/s, peak memory and ``train_mfu`` beside
   the card's name and power limit, a profile, a batch fitted in 10
   steps, then a child launcher killed by SIGTERM and resumed against two
-  uninterrupted runs (``lm_train``, ``lm_train_resume``).  The LM paths
-  have no kernel of their own: the reference computes them with plain
-  ``@`` and so does the port.
+  uninterrupted runs (``lm_train``, ``lm_train_resume``); then
+  ``launch/train.py --mesh 2x2`` on 4 lanes forced onto the card, 10
+  steps at full width, against ``--mesh 1x1 --microbatches 2`` (the
+  same losses) and ``--mesh 1x1``, each lane's bytes at rest beside the
+  dry-run's count, and its step-5 checkpoint resumed on ``4x1`` and
+  ``1x1`` (``lm_train_mesh``); the dense pooled statistics on a (2, 2)
+  lane mesh are held to a 2-lane data mesh bit for bit in
+  ``baselines``.  The LM paths have no kernel of their own: the
+  reference computes them with plain ``@`` and so does the port.
 
 Each phase prints one JSON line; a failed check raises, so the script
 exits non-zero.  The last lines are the kernel table, the card's name
@@ -2930,14 +2936,16 @@ def phase_baselines(corpus, results):
     ``torch.linalg.eigh``; and `distributed_screen_and_gram` on four
     forced lanes over the dense corpus's first 4,096 docs (1.68 GB
     float32) against one lane: the same support, Sigma_hat's difference
-    printed."""
+    printed; and on a (2, 2) ``("data", "model")`` lane mesh against a
+    2-lane data mesh: the same support, screen and Sigma_hat bit for
+    bit."""
     import numpy as np
     import torch
 
     from repro_torch.core import baselines, distributed, solve_bcd
     from repro_torch.core import solve_first_order
     from repro_torch.core.elimination import lam_for_target_size
-    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.launch.mesh import make_data_mesh, make_dev_mesh
     from repro_torch.launch.spca_run import dense_stats
 
     t_phase = time.perf_counter()
@@ -2967,6 +2975,19 @@ def phase_baselines(corpus, results):
         S4, sup4, _ = distributed.distributed_screen_and_gram(A, m4, lam)
         torch.cuda.synchronize()
         t4 = time.perf_counter()
+        # the (2, 2) ("data", "model") mesh pools over 'data' only: the
+        # same blocks and order as a 2-lane data mesh, bit for bit
+        m2 = make_data_mesh(2)
+        m22 = make_dev_mesh((2, 2), ("data", "model"))
+        S2, sup2, sc2 = distributed.distributed_screen_and_gram(A, m2, lam)
+        S22, sup22, sc22 = distributed.distributed_screen_and_gram(A, m22,
+                                                                   lam)
+        torch.cuda.synchronize()
+        mesh2d_equal = bool(
+            np.array_equal(sup2, sup22)
+            and torch.equal(S2.view(torch.int32), S22.view(torch.int32))
+            and torch.equal(sc2.variances.view(torch.int32),
+                            sc22.variances.view(torch.int32)))
     emit("baselines", seconds=time.perf_counter() - t_phase,
          n_hat=int(S.shape[0]), lam=r.lam, bcd_phi=phi,
          fo_dual_min=float(fo.dual_history.min()),
@@ -2977,7 +2998,9 @@ def phase_baselines(corpus, results):
          dist_support_equal=bool(np.array_equal(sup1, sup4)),
          dist_sigma_max_abs_diff=float((S1 - S4).abs().max()),
          dist_sigma_max_abs=float(S1.abs().max()),
-         dist_s_1_lane=t1 - t0, dist_s_4_lanes=t4 - t1)
+         dist_s_1_lane=t1 - t0, dist_s_4_lanes=t4 - t1,
+         dist_2x2_mesh_equals_2_lanes_bitwise=mesh2d_equal,
+         dist_2x2_support=int(sup22.size))
     check(float(fo.dual_history.min()) + 1e-4 >= phi
           >= float(fo.primal_history.max()) - 1e-4,
           "baselines: the first-order sandwich does not hold")
@@ -2985,6 +3008,8 @@ def phase_baselines(corpus, results):
           <= 1e-6 * float(evals[-1]), "baselines: power iteration != eigh")
     check(np.array_equal(sup1, sup4),
           "baselines: 4-lane support differs from 1 lane's")
+    check(mesh2d_equal, "baselines: the (2, 2) mesh's pooled statistics "
+          "differ from the 2-lane data mesh's")
 
 
 
@@ -3583,6 +3608,148 @@ def phase_lm_train():
           f"({kr['run_to_run_max_abs_diff']})")
 
 
+def _sharded_lane_bytes(state):
+    """Bytes each lane holds at rest of a sharded state's parameters and
+    AdamW moments, counted from its shards."""
+    from repro_torch.optim.adamw import _leaves
+
+    leaves = [x for t in (state.params, state.opt.mu, state.opt.nu)
+              for x in _leaves(t)]
+    return [sum(x.lane_bytes(i) for x in leaves)
+            for i in range(len(leaves[0].shards))]
+
+
+def _whole(state):
+    """A state's parameters and moments as whole tensors on the card,
+    gathered where sharded."""
+    from repro_torch.distributed.sharding import Sharded, gather
+    from repro_torch.optim.adamw import _leaves
+
+    return [(gather(x) if isinstance(x, Sharded) else x).detach()
+            for t in (state.params, state.opt.mu, state.opt.nu)
+            for x in _leaves(t)]
+
+
+def _max_diff(a, b):
+    """The largest absolute difference over two lists of float32 tensors
+    (0.0 exactly when every pair is equal)."""
+    import torch
+
+    worst = torch.zeros((), device=a[0].device)
+    for x, y in zip(a, b):
+        worst = torch.maximum(worst, (x - y).abs().max())
+    return float(worst)
+
+
+def _mesh_run(root, name, mesh, steps, extra=(), *, ckpt_every=1000,
+              resume_from=None):
+    """``launch/train.py`` in this process on ``--mesh mesh`` (qwen2-0.5b,
+    B 8, S 128), optionally resumed from the checkpoint directory
+    ``resume_from`` (linked into a directory of its own); the losses, ms
+    a step (median of the steps after the first), peak memory and the
+    whole final state on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import train as launcher
+
+    d = os.path.join(root, name)
+    if resume_from is not None:
+        shutil.copytree(resume_from, os.path.join(
+            d, os.path.basename(resume_from)), copy_function=os.link)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = launcher.main([*TRAIN_ARGS, "--mesh", mesh, "--steps", str(steps),
+                         "--ckpt-every", str(ckpt_every), "--ckpt-dir", d,
+                         *extra])
+    wall = time.perf_counter() - t0
+    trainer, state = res["trainer"], res["state"]
+    _, loss, times = (np.array(c) for c in zip(*trainer.history))
+    out = dict(mesh=mesh, extra=list(extra), dir=d, wall_s=wall,
+               steps=[int(e["step"]) for e in trainer.events
+                      if e["kind"] == "resume"]
+               + [int(trainer.history[-1][0]) + 1],
+               losses=loss.tolist(),
+               step_ms_median=float(np.median(times[1:])) * 1e3,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    if mesh != "1x1":
+        out["lane_bytes"] = _sharded_lane_bytes(state)
+    whole = _whole(state)
+    del res, trainer, state
+    _lm_free()
+    return out, whole
+
+
+def phase_lm_train_mesh(steps=10):
+    """``launch/train.py --arch qwen2-0.5b --mesh 2x2 --batch 8 --seq 128
+    --steps 10`` at full width on 4 lanes forced onto the card, against
+    ``--mesh 1x1 --microbatches 2`` and ``--mesh 1x1`` from the same
+    start (seed 0): every step's loss (2x2 within 1e-6 relative of
+    microbatches 2), each run's largest difference from the 2x2 run over
+    the final parameters and moments, ms a step and peak memory; each
+    lane's bytes at rest, counted from its shards, equal to the dry-run's
+    count for (2, 2) at B 8, S 128 (`launch.dryrun.plan_cell`); then the
+    2x2 run's step-5 checkpoint resumed to step 10 on ``4x1`` and on
+    ``1x1 --microbatches 2``, against the uninterrupted 2x2 run."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    smi = nvidia_smi()
+    t_phase = time.perf_counter()
+    dry = dryrun.plan_cell(
+        get_config("qwen2-0.5b"),
+        ShapeSpec("train_b8_s128", 128, 8, "train"),
+        make_dev_mesh((2, 2), ("data", "model"), device="meta"),
+        prove=False)["memory"]["state_bytes"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as root, \
+            _forced_lanes(4):
+        a, whole_a = _mesh_run(root, "2x2", "2x2", steps, ckpt_every=5)
+        runs = {"2x2": a}
+        for name, mesh, extra, start in (
+                ("1x1_microbatches_2", "1x1", ["--microbatches", "2"], None),
+                ("1x1", "1x1", [], None),
+                ("resume_4x1", "4x1", [], 5),
+                ("resume_1x1_microbatches_2", "1x1", ["--microbatches", "2"],
+                 5)):
+            ckpt = None if start is None else os.path.join(
+                a["dir"], f"step_{start:09d}")
+            run, whole = _mesh_run(root, name, mesh, steps, extra,
+                                   resume_from=ckpt)
+            run["max_abs_diff_vs_2x2"] = _max_diff(whole_a, whole)
+            ref = a["losses"][-len(run["losses"]):]
+            run["loss_max_rel_diff_vs_2x2"] = max(
+                abs(x - y) / abs(y) for x, y in zip(run["losses"], ref))
+            runs[name] = run
+            del whole
+        del whole_a
+        _lm_free()
+    for r in runs.values():
+        r.pop("dir")
+    row = dict(arch="qwen2-0.5b", batch=8, seq=128, steps=steps,
+               dryrun_state_bytes_per_lane=dry, runs=runs,
+               seconds=time.perf_counter() - t_phase, card=smi)
+    emit("lm_train_mesh", **row)
+    mb2, r4, r1 = (runs[k] for k in ("1x1_microbatches_2", "resume_4x1",
+                                     "resume_1x1_microbatches_2"))
+    print(f"lm_train_mesh qwen2-0.5b B 8 S 128: 2x2 {a['step_ms_median']:.1f} "
+          f"ms a step, 1x1 microbatches 2 {mb2['step_ms_median']:.1f}, 1x1 "
+          f"{runs['1x1']['step_ms_median']:.1f}; bytes at rest a lane "
+          f"{a['lane_bytes']} (dry-run {dry}); on {smi}", flush=True)
+    check(all(b == dry for b in a["lane_bytes"]),
+          f"lm_train_mesh: bytes at rest {a['lane_bytes']} != dry-run {dry}")
+    check(mb2["loss_max_rel_diff_vs_2x2"] <= 1e-6,
+          f"lm_train_mesh: 2x2 losses differ from microbatches 2: "
+          f"{a['losses']} vs {mb2['losses']}")
+    check(r1["steps"] == [5, steps] and r4["steps"] == [5, steps],
+          f"lm_train_mesh: resumed at {r1['steps']}, {r4['steps']}")
+    check(r1["max_abs_diff_vs_2x2"] <= mb2["max_abs_diff_vs_2x2"]
+          and r1["loss_max_rel_diff_vs_2x2"] <= 1e-6,
+          f"lm_train_mesh: the 1x1 resume differs from the 2x2 run: {r1}")
+    check(r4["loss_max_rel_diff_vs_2x2"] <= 1e-3,
+          f"lm_train_mesh: the 4x1 resume's losses differ: {r4}")
+
+
 def main():
     import torch
 
@@ -3674,6 +3841,8 @@ def main():
     phase_lm_train_record()
     phase_lm_train_full_width()
     phase_lm_train()
+    # the sharded train step on a 2x2 lane mesh (no kernel of its own)
+    phase_lm_train_mesh()
     kernels = [{
         "name": "bcd_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bcd_fused.cu",

@@ -20,9 +20,14 @@ Port of ``repro.checkpoint.checkpoint``.  Format (one directory per step):
   NamedTuple's fields are keyed ``.<field>`` in field order, as jax keys
   them (``.params/embed``, ``.opt/.count``).  Leaves are tensors, numpy
   arrays or scalars.
+- `save` gathers a sharded leaf (`distributed.sharding.Sharded`) into
+  one array, so a tree sharded on any mesh writes what the unsharded
+  tree of equal values writes.
 - `restore` returns tensors on the CPU, or on ``device`` when one is
-  given; the reference's elastic placement onto a jax mesh has no
-  counterpart here.
+  given; with ``shardings`` (the reference's elastic placement: a
+  matching tree of `distributed.sharding.NamedSharding`) a leaf that has
+  one comes back split onto that mesh as a `Sharded` leaf, whatever mesh
+  wrote it.
 - `prune` keeps the ``keep`` newest complete steps.
 """
 from __future__ import annotations
@@ -55,10 +60,13 @@ def _is_namedtuple(tree) -> bool:
     return isinstance(tree, tuple) and hasattr(tree, "_fields")
 
 
-def _flatten(tree, prefix: tuple = ()) -> dict:
-    """``{path: leaf}`` in jax's flattening order (see the module note)."""
+def _flatten(tree, prefix: tuple = (), is_leaf=lambda x: False) -> dict:
+    """``{path: leaf}`` in jax's flattening order (see the module note);
+    a node for which ``is_leaf`` holds is a leaf."""
     if tree is None:
         return {}
+    if is_leaf(tree):
+        return {"/".join(prefix): tree}
     if isinstance(tree, dict):
         items = ((str(k), tree[k]) for k in sorted(tree))
     elif _is_namedtuple(tree):
@@ -69,7 +77,7 @@ def _flatten(tree, prefix: tuple = ()) -> dict:
         return {"/".join(prefix): tree}
     out = {}
     for key, sub in items:
-        out.update(_flatten(sub, prefix + (key,)))
+        out.update(_flatten(sub, prefix + (key,), is_leaf))
     return out
 
 
@@ -95,7 +103,9 @@ def save(ckpt_dir: str, step: int, tree) -> str:
     final = os.path.join(ckpt_dir, f"step_{step:09d}")
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
-    arrays = {k: to_host(v) for k, v in _flatten(tree).items()}
+    from ..distributed.sharding import whole
+
+    arrays = {k: to_host(whole(v)) for k, v in _flatten(tree).items()}
     np.savez(os.path.join(tmp, DATA_NAME), **arrays)
     manifest = {
         "step": step,
@@ -137,12 +147,18 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like_tree, device=None):
+def restore(ckpt_dir: str, step: int, like_tree, shardings=None, *,
+            device=None):
     """Restore into the structure of ``like_tree``, whose leaves give the
     expected shapes (tensors, numpy arrays, or anything with ``.shape``).
     Leaves come back as tensors of the stored dtype, on ``device`` (the
-    CPU by default).  A corrupt or missing step raises RuntimeError; a
-    stored shape that differs from the expected one raises ValueError."""
+    CPU by default).  ``shardings``: a matching tree of
+    `distributed.sharding.NamedSharding` (a leaf may be ``None``) for
+    elastic placement onto the current mesh: such a leaf comes back as a
+    `Sharded` of that mesh and spec.  A corrupt or missing step raises
+    RuntimeError; a stored shape that differs from the expected one
+    raises ValueError."""
+    from ..distributed.sharding import NamedSharding, shard
     d = os.path.join(ckpt_dir, f"step_{step:09d}")
     try:
         data = np.load(os.path.join(d, DATA_NAME))
@@ -152,6 +168,10 @@ def restore(ckpt_dir: str, step: int, like_tree, device=None):
             f"({type(e).__name__}: {e}); pick a restorable step with "
             "latest_step()"
         ) from e
+    is_sharding = lambda x: isinstance(x, NamedSharding)  # noqa: E731
+    flat_shard = {} if shardings is None else {
+        k: v for k, v in _flatten(shardings, is_leaf=is_sharding).items()
+        if is_sharding(v)}
     leaves = {}
     with data:
         for key, like in _flatten(like_tree).items():
@@ -160,7 +180,11 @@ def restore(ckpt_dir: str, step: int, like_tree, device=None):
                 raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
                                  f"expected {tuple(like.shape)}")
             t = torch.from_numpy(arr)
-            leaves[key] = t if device is None else t.to(device)
+            sh = flat_shard.get(key)
+            if sh is not None:
+                leaves[key] = shard(t, sh.mesh, sh.spec)
+            else:
+                leaves[key] = t if device is None else t.to(device)
     return _unflatten(like_tree, leaves)
 
 

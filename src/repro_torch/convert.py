@@ -170,9 +170,13 @@ def _copy_from_reference(dest, tree, what: str):
 
 def _to_reference(tree, *, like: bool = False) -> dict:
     """The port-layout ``tree`` in the reference's layout: nested dicts of
-    numpy arrays, each list over periods stacked along a leading axis.
+    numpy arrays, each list over periods stacked along a leading axis
+    (sharded leaves gathered first, so a state sharded on any mesh gives
+    the same arrays as the one-device state of equal values).
     ``like=True`` gives shape-only ``meta`` tensors instead (what
     `checkpoint.restore` needs to read a step), copying nothing."""
+    from .distributed.sharding import whole
+
     out: dict = {}
     for rpath, items in _by_reference_path(tree).items():
         stacked = items[0][0] is not None
@@ -181,7 +185,7 @@ def _to_reference(tree, *, like: bool = False) -> dict:
             shape = ((len(items),) if stacked else ()) + tuple(t.shape)
             a = torch.empty(shape, dtype=t.dtype, device="meta")
         else:
-            arrs = [to_host(t) for _, t in items]
+            arrs = [to_host(whole(t)) for _, t in items]
             a = np.stack(arrs) if stacked else arrs[0].copy()
         node = out
         for k in rpath[:-1]:

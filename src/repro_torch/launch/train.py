@@ -14,8 +14,14 @@ be one the reference wrote), SIGTERM checkpoints and stops, straggler
 events are logged.  Output: one line per trainer event, printed as it
 happens, then ``final step N``.
 
-``--mesh`` takes only ``1x1``: the (data, model) meshes are ROADMAP queue
-1 item 14c.
+``--mesh DxM`` trains on a (data, model) grid of D x M lanes
+(`launch.mesh.make_dev_mesh`): the sharded train step of
+`train.train_step` under ``distributed.use_mesh``, which computes what
+one device computes with ``--microbatches D`` (bit for bit).  The lanes
+are forced onto the devices there are with ``REPRO_TORCH_FORCE_LANES``
+(D x M lanes of one card, or of the CPU with ``--device cpu``); with too
+few lanes the launcher raises, naming that variable.  ``--mesh 1x1`` (the
+default) is the one-device step.
 """
 from __future__ import annotations
 
@@ -29,6 +35,8 @@ import torch
 from ..configs import get_config, get_smoke_config
 from ..data import PipelineConfig, TokenPipeline
 from ..device import resolve
+from ..distributed.sharding import use_mesh
+from ..launch.mesh import make_dev_mesh
 from ..models import build_model
 from ..optim import AdamWConfig
 from ..train import Trainer, TrainerConfig, init_state, make_train_step
@@ -48,7 +56,8 @@ def parse_args(argv=None):
         tempfile.gettempdir(), "repro_torch_train"))
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--mesh", default="1x1",
-                    help="data x model; only 1x1 (one device) is ported")
+                    help="data x model, e.g. 2x2 (needs that many lanes: "
+                         "REPRO_TORCH_FORCE_LANES lets them share a device)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap.parse_args(argv)
 
@@ -59,11 +68,11 @@ def main(argv=None):
     ``history``, its ``train_step`` carrying the model)."""
     args = parse_args(argv)
     d, m = (int(x) for x in args.mesh.split("x"))
-    if d * m > 1:
-        raise SystemExit(
-            f"--mesh {args.mesh}: the port's (data, model) meshes are not "
-            "ported yet (ROADMAP queue 1 item 14c); run with --mesh 1x1")
     device = resolve(args.device)
+    mesh = (make_dev_mesh((d, m), ("data", "model"), device=device)
+            if d * m > 1 else None)
+    if mesh is not None:
+        device = mesh.lanes[0].device
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg, device=device)
 
@@ -82,15 +91,17 @@ def main(argv=None):
                 dtype=torch.float32, device=device)
         return b
 
-    step = make_train_step(model, AdamWConfig(lr=args.lr),
-                           microbatches=args.microbatches)
-    trainer = Trainer(
-        train_step=step, pipeline=pipe, make_batch=make_batch,
-        cfg=TrainerConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
-                          ckpt_dir=args.ckpt_dir, log_every=10),
-        on_event=lambda e: print(e, flush=True),
-    )
-    state = trainer.run(init_state(model))
+    with use_mesh(mesh):
+        step = make_train_step(model, AdamWConfig(lr=args.lr),
+                               microbatches=args.microbatches)
+        trainer = Trainer(
+            train_step=step, pipeline=pipe, make_batch=make_batch,
+            cfg=TrainerConfig(total_steps=args.steps,
+                              ckpt_every=args.ckpt_every,
+                              ckpt_dir=args.ckpt_dir, log_every=10),
+            on_event=lambda e: print(e, flush=True),
+        )
+        state = trainer.run(init_state(model))
     print(f"final step {int(state.step)}", flush=True)
     return {"state": state, "trainer": trainer}
 

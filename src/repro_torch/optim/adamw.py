@@ -96,17 +96,29 @@ def global_norm(tree) -> torch.Tensor:
     return _sum_of_squares(reference_order(tree))
 
 
-def update(grads, state: OptState, params, cfg: AdamWConfig, lr_scale=1.0):
+def grad_norm(grads, params) -> torch.Tensor:
+    """The global norm of ``grads`` (a tree shaped like ``params``, or its
+    leaves in `_leaves` order), summed in ``params``' reference leaf order
+    (`reference_order`)."""
+    grad_of = {id(p): g for p, g in zip(_leaves(params), _leaves(grads))}
+    return _sum_of_squares([[grad_of[id(p)] for p in group]
+                            for group in reference_order(params)])
+
+
+def update(grads, state: OptState, params, cfg: AdamWConfig, lr_scale=1.0,
+           *, gnorm=None):
     """One AdamW step.  ``grads`` is a tree shaped like ``params``, or its
     leaves in `_leaves` order (what the train step holds).  Writes
     ``params`` and the moments in place and returns (params, new_state,
     metrics): metrics ``grad_norm`` (before clipping, a 0-d float32 tensor
     on the gradients' device, summed in the reference's leaf order) and
-    ``lr`` (a 0-d float32 CPU tensor)."""
+    ``lr`` (a 0-d float32 CPU tensor).  ``gnorm``, when given, is the
+    global norm to clip by in place of ``grads``' own: a lane updating
+    its shards of a sharded state clips by the norm of the whole
+    gradient."""
     grads = list(_leaves(grads))
-    grad_of = {id(p): g for p, g in zip(_leaves(params), grads)}
-    gnorm = _sum_of_squares([[grad_of[id(p)] for p in group]
-                             for group in reference_order(params)])
+    if gnorm is None:
+        gnorm = grad_norm(grads, params)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     count = state.count + 1
     # float32 values on the host, passed to the card's arithmetic exactly

@@ -43,6 +43,13 @@ def test_port_imports_neither_jax_nor_reference():
         from repro_torch.train import trainer
         from repro_torch.launch import analysis, train as lm_train
         from repro_torch.testing import lm_train_record
+        from repro_torch import distributed
+        from repro_torch.distributed import sharding
+        from repro_torch.launch import dryrun, inputs, mesh
+        from repro_torch.optim.compression import compressed_pmean
+        from repro_torch.core.distributed import data_axes_of
+        assert mesh.make_production_mesh(device="meta").shape == {
+            "data": 16, "model": 16}
         assert analysis.count_params(configs.get_config("qwen2-0.5b"))[
             "total"] == 494032768
         import chip_smoke
@@ -68,6 +75,10 @@ def test_port_imports_neither_jax_nor_reference():
 
 def test_source_scan_finds_no_jax_or_reference_import():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    names = {p.relative_to(REPO / "src" / "repro_torch").as_posix()
+             for p in files}
+    assert {"distributed/__init__.py", "distributed/sharding.py",
+            "launch/inputs.py", "launch/dryrun.py"} <= names
     files.append(REPO / "chip_smoke.py")
     files += sorted((REPO / "scripts").glob("*.py"))
     assert len(files) > 10

@@ -32,8 +32,9 @@ compared, not step 0's alone, which is a forward pass before any update.
 Without a checkpoint the launchers give the same event kinds and steps.
 The reference launcher runs in a child interpreter with ``XLA_FLAGS``
 removed (``repro.launch.dryrun``, imported by other test files, sets it
-to 512 host devices).  ``--mesh`` other than ``1x1`` is refused, naming
-the queue item that ports the meshes.
+to 512 host devices).  ``--mesh`` wider than the lanes there are is
+refused, naming ``REPRO_TORCH_FORCE_LANES``
+(``tests/test_torch_sharded_train.py`` runs the meshes).
 """
 import ast
 import json
@@ -167,7 +168,8 @@ def test_launcher_events_match_reference_without_checkpoint(
 
 
 def test_launcher_refuses_a_mesh_and_a_missing_card(tmp_path, monkeypatch):
-    with pytest.raises(SystemExit, match="14c"):
+    monkeypatch.delenv("REPRO_TORCH_FORCE_LANES", raising=False)
+    with pytest.raises(RuntimeError, match="REPRO_TORCH_FORCE_LANES=2"):
         ttrain.main([*ARGS, "--device", "cpu", "--mesh", "2x1",
                      "--ckpt-dir", str(tmp_path)])
     monkeypatch.setattr(device.torch.cuda, "is_available", lambda: False)
