@@ -68,6 +68,31 @@ class Corpus:
     def nnz(self) -> int:
         return int(self.counts.size)
 
+    def dense(self, *, max_bytes: int | None = None) -> np.ndarray:
+        """Materialise (n_docs, n_words) float32: small corpora only.
+
+        Refuses to allocate past ``max_bytes`` (default
+        `DENSE_BYTE_BUDGET`): the paper's corpora are exactly the ones a
+        dense (m, n) array cannot hold, and the supported route at that
+        scale is the sharded CSR store
+        (``repro_torch.sparse.write_corpus(corpus, path)`` +
+        ``SparseCorpus.iter_chunks``).
+        """
+        budget = DENSE_BYTE_BUDGET if max_bytes is None else max_bytes
+        need = self.n_docs * self.n_words * 4
+        if need > budget:
+            raise MemoryError(
+                f"dense materialisation of ({self.n_docs}, {self.n_words}) "
+                f"needs {need / 1e9:.2f} GB > {budget / 1e9:.2f} GB budget "
+                f"(pass max_bytes= to override). At this scale use the "
+                f"out-of-core sparse store: "
+                f"repro_torch.sparse.write_corpus(corpus, path) and stream "
+                f"SparseCorpus.iter_chunks through the CSR kernels."
+            )
+        X = np.zeros((self.n_docs, self.n_words), np.float32)
+        np.add.at(X, (self.doc_idx, self.word_idx), self.counts)
+        return X
+
     def column_stats_exact(self):
         """Exact per-word mean/variance straight from the sparse COO —
         the oracle for the streaming/kernel/distributed paths."""

@@ -22,12 +22,15 @@ What a spec means is what the reference gets from
 into a `Sharded` of one shard a lane (the slice of every sharded dim that
 the lane's coordinates pick, a copy on every lane of an axis the spec
 does not name), and `gather` puts the full tensor back together in lane
-order.  `constrain` is the identity: eager PyTorch has no partitioner to
-take a layout hint, and the port's model code does not call it.
+order, or one lane's part of it widened over some axes.  `constrain` is
+the identity: eager PyTorch has no partitioner to take a layout hint;
+the sharded train step's partition, which the reference's hints give
+XLA, is `distributed.partition`'s own code.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import re
 import threading
@@ -289,6 +292,13 @@ def shard_shape(shape, mesh, spec) -> tuple:
 
 def shard_slices(shape, mesh, spec, lane: int) -> tuple:
     """The slice of a ``shape`` tensor that lane ``lane`` holds."""
+    if not isinstance(spec, PartitionSpec):
+        spec = PartitionSpec(*spec)
+    return _slices(tuple(shape), mesh, spec, lane)
+
+
+@functools.lru_cache(maxsize=1 << 20)
+def _slices(shape, mesh, spec, lane):
     coords = mesh.coords(lane)
     local = shard_shape(shape, mesh, spec)
     out = []
@@ -343,21 +353,104 @@ def whole(x):
     return gather(x) if isinstance(x, Sharded) else x
 
 
-def gather(s: Sharded, device=None, out: torch.Tensor | None = None
-           ) -> torch.Tensor:
+def region_slices(s: Sharded, lane: int, axes) -> tuple:
+    """The part of ``s`` that lane ``lane`` holds, widened to the whole
+    dim wherever the dim's axes are all in ``axes`` (mesh axis names):
+    what a gather over ``axes`` puts together on that lane."""
+    return _region(tuple(s.shape), s.mesh, s.spec, lane, tuple(axes))
+
+
+@functools.lru_cache(maxsize=65536)
+def _region(shape, mesh, spec, lane, axes):
+    axes = set(axes)
+    own = shard_slices(shape, mesh, spec, lane)
+    out = []
+    for i, sl in enumerate(own):
+        part = set(_spec_axes(spec[i] if i < len(spec) else None))
+        if part <= axes:
+            out.append(slice(0, shape[i]))
+        elif part & axes:
+            raise ValueError(f"dim {i} of {shape} under {spec} splits over "
+                             f"{sorted(part)}, of which a gather over "
+                             f"{sorted(axes)} would take only some")
+        else:
+            out.append(sl)
+    return tuple(out)
+
+
+def gather_sources(s: Sharded, region) -> list:
+    """``(lane, slice of the full tensor)`` for every distinct shard of
+    ``s`` that meets ``region`` (a tuple of slices), each from the first
+    lane that holds it, in lane order; the slice is the part of the shard
+    inside ``region`` (the whole shard where the region covers it)."""
+    return _sources(tuple(s.shape), s.mesh, s.spec,
+                    tuple((r.start, r.stop) for r in region))
+
+
+@functools.lru_cache(maxsize=65536)
+def _sources(shape, mesh, spec, region):
+    seen, out = set(), []
+    for i in range(mesh.size):
+        sl = shard_slices(shape, mesh, spec, i)
+        key = tuple((x.start, x.stop) for x in sl)
+        if key in seen:
+            continue
+        seen.add(key)
+        inter = tuple(slice(max(x.start, r0), min(x.stop, r1))
+                      for x, (r0, r1) in zip(sl, region))
+        if all(x.start < x.stop for x in inter):
+            out.append((i, inter))
+    return out
+
+
+def within(inner, outer) -> tuple:
+    """``inner`` (slices of the full tensor) as slices of the part
+    ``outer`` covers."""
+    return tuple(slice(x.start - o.start, x.stop - o.start)
+                 for x, o in zip(inner, outer))
+
+
+def gather_plan(s: Sharded, region) -> tuple:
+    """How `gather` puts ``region`` of ``s`` together: ``(lane, where in
+    the region, which part of the lane's shard or None for all of it)``
+    for each source of `gather_sources`."""
+    return _plan(tuple(s.shape), s.mesh, s.spec,
+                 tuple((r.start, r.stop) for r in region))
+
+
+@functools.lru_cache(maxsize=65536)
+def _plan(shape, mesh, spec, region):
+    reg = tuple(slice(*r) for r in region)
+    out = []
+    for i, sl in _sources(shape, mesh, spec, region):
+        own = shard_slices(shape, mesh, spec, i)
+        out.append((i, within(sl, reg),
+                    None if sl == own else within(sl, own)))
+    return tuple(out)
+
+
+def gather(s: Sharded, device=None, out: torch.Tensor | None = None, *,
+           lane: int | None = None, axes=(), dtype=None,
+           region=None) -> torch.Tensor:
     """The full tensor of ``s``, put together in lane order from the first
     lane that holds each slice, on ``device`` (lane 0's by default), or
-    written into ``out``."""
+    written into ``out``.  With ``lane``, only the part lane ``lane``
+    holds widened over the mesh axes ``axes`` (`region_slices`: a gather
+    over ``data`` gives a lane its ``model`` slice of an FSDP leaf), or
+    ``region`` (a tuple of slices, whatever shards it cuts), on that
+    lane's device by default, in ``dtype`` (``s``'s by default: each
+    shard is rounded as ``.to(dtype)`` rounds it)."""
+    if region is None:
+        region = (tuple(slice(0, n) for n in s.shape) if lane is None
+                  else region_slices(s, lane, axes))
     if out is None:
-        dev = s.mesh.lanes[0].device if device is None else device
-        out = torch.empty(s.shape, dtype=s.dtype, device=dev)
-    seen = set()
+        dev = device if device is not None else \
+            s.mesh.lanes[0 if lane is None else lane].device
+        out = torch.empty(tuple(r.stop - r.start for r in region),
+                          dtype=dtype or s.dtype, device=dev)
+    if out.device.type == "meta":
+        return out          # nothing to copy: a meta tensor has no data
     with torch.no_grad():
-        for i, t in enumerate(s.shards):
-            sl = shard_slices(s.shape, s.mesh, s.spec, i)
-            key = tuple((x.start, x.stop) for x in sl)
-            if key in seen:
-                continue
-            seen.add(key)
-            out[sl].copy_(t)
+        for i, at, part in gather_plan(s, region):
+            out[at].copy_(s.shards[i] if part is None else s.shards[i][part])
     return out

@@ -12,41 +12,66 @@ single-pod ``(16, 16)`` and multi-pod ``(2, 16, 16)``:
 1. **Shape proof, in place of the compile proof.**  Nothing is compiled.
    The cell's step (train, prefill or decode, as the reference's
    ``_lower_cell`` picks) runs once end to end on ``meta`` tensors, with
-   the stand-ins and specs of `launch.inputs`, as the port's sharded
-   plan runs it (`train.train_step`): the batch splits over the batch
-   axes, one data group's lane computes its rows on a whole replica, and
-   (train) one lane's AdamW update runs on its shards.  Every data group
-   has the same shapes, so one group's run proves them all.  A shape or
-   spec mismatch raises and fails the cell, as a sharding mismatch fails
-   the reference's compile.
+   the stand-ins and specs of `launch.inputs`, as the port runs it.
+   Train: the partitioned sharded step (`distributed.partition`,
+   `train.train_step`): the parameters sharded onto the mesh, the batch
+   split over the batch axes, one data group's M lanes each gathering a
+   period's weights at a time and computing its share of the products,
+   then one lane's AdamW update on its shards.  Every data group has the
+   same shapes, so one group's run proves them all; within the group
+   every lane gathers its weights, and lanes 2 and up, whose shares have
+   lane 1's shapes, take lane 1's outputs (`_SampledPlan`).  Prefill and
+   decode: the port has no sharded serve step, so a lane serves its
+   group's rows on a whole replica (`make_prefill_step`,
+   `make_serve_step`), the plan ``replica``.  A shape or spec mismatch
+   raises and fails the cell, as a sharding mismatch fails the
+   reference's compile.
 2. **Memory**: the bytes each lane holds of the step's arguments
    (parameters, optimizer state, batch, cache: each leaf's shard under
    its spec; the guard keeps shards equal, so every lane holds the
    same), the counterpart of ``argument_size_in_bytes``, exact
-   arithmetic.  Also the full replica that the plan gathers onto a
-   compute lane (the parameters, and for train the pooled float32
-   gradient), and both checked against the H100's 80 GB.  XLA's
-   ``temp`` (activations), ``output``, ``alias`` and ``code`` have no
-   counterpart: ``null``, with the reason in the record.
+   arithmetic.  Then the plan's bytes a lane (``lane_gb``, the largest
+   over a group's lanes, checked against the H100's 80 GB).  Train: the
+   arguments; the float32 gradient it keeps (the pooled one and one
+   group's, a tensor for each distinct shard it first holds); the
+   gathered weights it holds at once, from the plan's counts (its
+   top-level slices and two periods' slices: the one in use and the one
+   before it, not yet freed; every period under ``remat == "none"``);
+   the activations kept for the backward pass (the tensors saved outside
+   the periods, the checkpointed periods' inputs among them, counted in
+   the shape proof, and the most one period saves, counted in a run of
+   each stack's first period without checkpointing, as its recompute
+   runs it; the backward pass's own temporaries are not counted); and on
+   the group's
+   first lane the one whole gradient leaf the clip norm sums, once the
+   backward pass is over.  Prefill and decode: the arguments, the whole
+   parameters and their compute-dtype copy, and (decode) the group's
+   rows' cache.  XLA's ``temp``, ``output``, ``alias`` and ``code`` have
+   no counterpart: ``null``, with the reason in the record.
 3. **Cost**: FLOPs counted by ``torch.utils.flop_counter.FlopCounterMode``
    over the whole depth (there is no scan hiding a loop body), for the
-   whole step (one group's count times the groups) and for one compute
-   lane; and at the reference's probe depths (`_probe_cfg`, 2 and 4
+   whole step (one group's count times the groups) and for one group
+   (``flops_per_group``; a recompute runs its whole period here); and at
+   the reference's probe depths (`_probe_cfg`, 2 and 4
    periods), to check that the three counts lie on the reference's line
    ``F(n) = A + n*B`` (``n = n_periods + n_remainder / period_len``, as
    ``benchmarks/roofline.py`` reads it).  The counter counts matrix
-   products only, and it counts remat's recomputed forward; the ratio to
-   `launch.analysis`'s model FLOPs is reported.  Bytes accessed have no
+   products and attention (as XLA's flop count is dominated by them);
+   elementwise work is not counted.  Bytes accessed have no
    counterpart: ``null``.
 4. **Lane-to-lane bytes** of the port's plan, under the reference's
-   collective keys; they describe the port's plan, not XLA's:
-   ``all-gather`` the bytes the compute lanes fetch to put the whole
-   parameters (and for decode their rows' cache) together from the
-   shards; ``all-reduce`` the float32 gradients, loss and metrics the
-   other groups' lanes send to lane 0 to be pooled; ``reduce-scatter``
-   the pooled gradient's shards lane 0 sends to every other lane;
-   ``all-to-all`` and ``collective-permute`` 0; ``n_ops`` the tensor
-   copies; ``total`` their bytes; all summed over the mesh for one step.
+   collective keys; they describe the port's plan, not XLA's.  Train:
+   ``all-gather`` the bytes every gather puts together (a lane's own
+   shard included); ``all-reduce`` the lanes' inputs and partial outputs
+   moved within a group (the backward pass counted as moving the
+   forward's again) and the float32 gradients, loss and metrics pooled
+   over the groups; ``reduce-scatter`` the pooled gradient copied to the
+   lanes that hold a shard another lane pools.  Prefill and decode:
+   ``all-gather`` the bytes a lane fetches to put the whole parameters
+   (and for decode its group's rows' cache) together.  ``all-to-all``
+   and ``collective-permute`` 0; ``n_ops`` the gathers and pooled
+   tensors; ``total`` their bytes; all summed over the mesh for one
+   step.
    The HLO parser ``collective_bytes`` has no input here and is not
    ported.
 
@@ -70,11 +95,17 @@ import time
 import traceback
 
 import torch
+import torch.utils.checkpoint
 
 from ..configs import SHAPES, cells, get_config
 from ..optim import adamw
 from ..optim.adamw import OptState
-from ..distributed.sharding import NamedSharding, shard_shape
+from ..distributed import partition
+from ..distributed.sharding import (
+    NamedSharding, shard, shard_shape, shard_slices, tree_map,
+)
+from ..models.model import cast_params
+from ..models.transformer import StackSpec, run_stack
 from . import analysis
 from .inputs import cell_specs
 from .mesh import make_production_mesh
@@ -183,28 +214,170 @@ def _group_args(model, kind, structs, groups, seq_len):
     return rows, (cache, _rows_of(structs[2], rows))
 
 
-def _run_group(model, kind, rows, args, microbatches=1):
-    """One data group's step on meta (the shape proof): decode, prefill,
-    or the loss and gradients of train."""
-    from ..train.train_step import (
-        _loss_and_grads, make_prefill_step, make_serve_step,
-    )
+def _serve_group(model, kind, rows, args):
+    """One data group's prefill or decode on meta (the shape proof), on
+    a whole replica: the port's serve steps run on one device."""
+    from ..train.train_step import make_prefill_step, make_serve_step
 
     if kind == "decode":
         _, nxt = make_serve_step(model)(*args)
         if tuple(nxt.shape) != (rows, 1):
             raise ValueError(f"decode gave {tuple(nxt.shape)}")
-    elif kind == "prefill":
+    else:
         out = make_prefill_step(model)(args)
         if tuple(out.shape) != (rows,):
             raise ValueError(f"prefill gave {tuple(out.shape)}")
-    else:
-        leaves = list(adamw._leaves(model.params()))
-        loss, _, grads = _loss_and_grads(model, leaves, args, microbatches)
-        if loss.shape != () or any(g.shape != p.shape
-                                   for g, p in zip(grads, leaves)):
-            raise ValueError("train: a gradient's shape is not its "
-                             "parameter's")
+
+
+class _SampledPlan(partition.GroupPlan):
+    """The partitioned plan on a production group's ``meta`` lanes (16
+    of them, where an operation costs a fraction of a millisecond): every
+    lane gathers its weights, but lanes 2 and up, whose shares have lane
+    1's shapes, compute nothing and take lane 1's outputs.  Besides the
+    plan's own counts it keeps ``lane_flops``, lane 1's FLOPs; ``at``,
+    the lane computing now (0 outside `run`); ``weights``, the storages
+    of the weights gathered; ``seqs``, each stack's query length."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.at = 0
+        self.lane_flops = 0
+        self.weights = {}
+        self.seqs = {}
+        self._one = None
+
+    def _take(self, *args, **kw):
+        out = super()._take(*args, **kw)
+        st = out.untyped_storage()
+        self.weights[st._cdata] = st
+        return out
+
+    def stack(self, name, seq):
+        self.seqs[name] = seq
+        return super().stack(name, seq)
+
+    def _lane_run(self, m, fn, shared):
+        from torch.utils.flop_counter import FlopCounterMode
+
+        if m >= 2:
+            out, moved = self._one
+            self.moved += moved
+            return out
+        before, self.at = self.moved, m
+        try:
+            if m == 0:
+                return super()._lane_run(m, fn, shared)
+            with FlopCounterMode(display=False) as fc:
+                out = super()._lane_run(m, fn, shared)
+        finally:
+            self.at = 0
+        self.lane_flops += fc.get_total_flops()
+        self._one = (out, self.moved - before)
+        return out
+
+
+class _Saved:
+    """The bytes of the tensors autograd saves for the backward pass
+    while this is entered, by the lane computing (``plan.at``): a storage
+    counted once, the gathered weights and the storages of ``skip`` left
+    out.  ``high[m]`` is the most over the times it was entered."""
+
+    def __init__(self, plan, skip=()):
+        self.plan = plan
+        self.skip = {t.untyped_storage()._cdata for t in skip}
+        self.high = [0] * plan.M
+
+    def __enter__(self):
+        self.now = [0] * self.plan.M
+        self.seen = {}
+        self.hooks = torch.autograd.graph.saved_tensors_hooks(
+            self._pack, lambda t: t)
+        self.hooks.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.hooks.__exit__(*exc)
+        self.high = [max(h, n) for h, n in zip(self.high, self.now)]
+        self.seen = None
+
+    def _pack(self, t):
+        st = t.untyped_storage()
+        k = st._cdata
+        if k not in self.seen and k not in self.plan.weights \
+                and k not in self.skip:
+            self.seen[k] = st
+            self.now[self.plan.at] += st.nbytes()
+        return t
+
+
+def _train_group(model, args, mesh, params, microbatches):
+    """One data group's loss and gradients on meta (the shape proof), on
+    the partitioned plan (`_SampledPlan`) of ``params`` (the parameters
+    sharded onto ``mesh``).  Returns the plan, the forward passes' counts
+    (``moved``, lane 1's ``flops``, each lane's most ``gathered`` in one
+    pass) and the tensors saved outside the periods (`_Saved`)."""
+    from ..train.train_step import _loss_and_grads
+
+    proxies = partition.Proxies(params)
+    plan = _SampledPlan(model, mesh, partition.group_lanes(mesh)[0],
+                        proxies)
+    outer = _Saved(plan)
+    fwd = {"moved": 0, "flops": 0, "gathered": [0] * plan.M}
+
+    def loss_fn(batch):
+        moved, flops = plan.moved, plan.lane_flops
+        gathered = list(plan.gathered)
+        with outer:
+            out = model.loss(batch, layout=plan.layout)
+        fwd["moved"] += plan.moved - moved
+        fwd["flops"] += plan.lane_flops - flops
+        fwd["gathered"] = [max(f, a - b) for f, a, b in zip(
+            fwd["gathered"], plan.gathered, gathered)]
+        return out
+
+    inputs = proxies.grad_inputs()
+    # a recompute runs its whole period (no early stop), so lane 1's
+    # count stands for every lane's
+    with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+        loss, _, grads = _loss_and_grads(loss_fn, inputs, args,
+                                         microbatches, plan.home.device)
+    if loss.shape != () or any(g.shape != p.shape
+                               for g, p in zip(grads, inputs)):
+        raise ValueError("train: a gradient's shape is not its shard's")
+    return plan, fwd, outer.high
+
+
+def _stacks(model):
+    enc = [("enc_stack", model.enc_spec)] \
+        if model.cfg.is_encoder_decoder else []
+    return enc + [(f"s{i}", st) for i, st in enumerate(model.stack_specs)]
+
+
+def _period_saved(model, plan, rows) -> list:
+    """The most bytes one period saves for its backward pass, a lane
+    (`_Saved`): each stack's first period run alone on ``rows`` rows,
+    without checkpointing, as the backward pass's recompute runs it."""
+    cfg = model.cfg
+    dev = plan.home.device
+    flat = cfg.scaled(remat="none")
+    enc = None
+    if cfg.is_encoder_decoder:
+        enc = torch.empty((rows, plan.seqs["enc_stack"], cfg.d_model),
+                          dtype=cfg.compute_dtype, device=dev)
+    best = [0] * plan.M
+    for name, st in _stacks(model):
+        S = plan.seqs[name]
+        x = torch.empty((rows, S, cfg.d_model), dtype=cfg.compute_dtype,
+                        device=dev, requires_grad=True)
+        saved = _Saved(plan, skip=[t for t in (x, enc) if t is not None])
+        with torch.enable_grad(), saved:
+            run_stack(plan.stack(name, S)[:1], x,
+                      StackSpec(st.period, 1, st.has_cross), flat,
+                      positions=torch.arange(S, device=dev)[None, :],
+                      enc_out=None if name == "enc_stack" else enc,
+                      **plan.stack_kw())
+        best = [max(b, h) for b, h in zip(best, saved.high)]
+    return best
 
 
 def _update_on_shards(params, specs, mesh):
@@ -231,26 +404,59 @@ def _flops(fn) -> int:
     return int(fc.get_total_flops())
 
 
-def _collectives(kind, mesh, p_rows, c_rows, groups) -> dict:
+def _owned_grad_bytes(p_rows, mesh) -> tuple:
+    """Float32 bytes of the pooled gradient each lane keeps (one tensor
+    for every distinct shard it is the first lane to hold) and the bytes
+    of the shards it holds but does not own (the pooled gradient's copy
+    it is sent)."""
+    owned, copied = [0] * mesh.size, [0] * mesh.size
+    for shape, _, spec in p_rows:
+        shard = math.prod(shard_shape(shape, mesh, spec)) * F32_BYTES
+        first = {}
+        for i in range(mesh.size):
+            key = tuple((x.start, x.stop)
+                        for x in shard_slices(shape, mesh, spec, i))
+            if key in first:
+                copied[i] += shard
+            else:
+                first[key] = i
+                owned[i] += shard
+    return owned, copied
+
+
+def _cast_bytes(params, cfg) -> int:
+    """The bytes of the compute-dtype copy a model keeps beside its
+    parameters while serving (`LM.compute_params`)."""
+    a, b = [], []
+    _walk_leaves(params, a)
+    _walk_leaves(cast_params(params, cfg), b)
+    return sum(y.numel() * y.element_size() for x, y in zip(a, b)
+               if y is not x)
+
+
+def _collectives(kind, mesh, p_rows, c_rows, groups, plan=None, fwd=None,
+                 copied=0) -> dict:
     """Lane-to-lane bytes of the port's plan for one step (see the module
     note), summed over the mesh."""
     out = {k: 0 for k in COLLECTIVES}
-    own = _lane_bytes(p_rows, mesh)
-    out["all-gather"] = groups * (_full_bytes(p_rows) - own)
-    n_ops = groups * len(p_rows)
-    if kind == "decode":
-        full_cache = _full_bytes(c_rows) // groups      # a group's rows
-        out["all-gather"] += groups * max(
-            full_cache - _lane_bytes(c_rows, mesh), 0)
-        n_ops += groups * len(c_rows)
     if kind == "train":
+        out["all-gather"] = groups * sum(plan.gathered)
+        n_ops = groups * sum(plan.gathers)
         grads = sum(math.prod(s) * F32_BYTES for s, _, _ in p_rows)
-        out["all-reduce"] = (groups - 1) * (grads + 4 * F32_BYTES)
+        # the backward pass moves the forward's inputs and outputs back
+        out["all-reduce"] = (groups - 1) * (grads + 4 * F32_BYTES) \
+            + groups * (plan.moved + fwd["moved"])
         n_ops += (groups - 1) * (len(p_rows) + 4)
-        shard32 = sum(math.prod(shard_shape(s, mesh, sp)) * F32_BYTES
-                      for s, _, sp in p_rows)
-        out["reduce-scatter"] = (mesh.size - 1) * shard32
-        n_ops += (mesh.size - 1) * len(p_rows)
+        out["reduce-scatter"] = copied
+    else:
+        own = _lane_bytes(p_rows, mesh)
+        out["all-gather"] = groups * (_full_bytes(p_rows) - own)
+        n_ops = groups * len(p_rows)
+        if kind == "decode":
+            full_cache = _full_bytes(c_rows) // groups      # a group's rows
+            out["all-gather"] += groups * max(
+                full_cache - _lane_bytes(c_rows, mesh), 0)
+            n_ops += groups * len(c_rows)
     out["n_ops"] = n_ops
     out["total"] = sum(out[k] for k in COLLECTIVES)
     return out
@@ -282,23 +488,10 @@ def plan_cell(cfg, shape, mesh, *, microbatches=1, count_flops=False,
         else:
             p_rows = _leaf_rows(structs[0], shardings[0])
             opt_rows = []
-    t0 = time.perf_counter()
-    group_flops = None
-    if prove or count_flops:
-        rows, args = _group_args(model, kind, structs, groups, shape.seq_len)
-        run = lambda: _run_group(model, kind, rows, args,  # noqa: E731
-                                 microbatches)
-        group_flops = _flops(run) if count_flops else run()
-        if kind == "train":
-            _update_on_shards(structs[0].params, shardings[0].params, mesh)
-    proof_s = time.perf_counter() - t0 if prove or count_flops else None
     lane = {name: _lane_bytes(rows, mesh) for name, rows in (
         ("params", p_rows), ("opt", opt_rows), ("batch", b_rows),
         ("cache", c_rows))}
     arg = sum(lane.values())
-    replica = _full_bytes(p_rows)
-    if kind == "train":
-        replica += sum(math.prod(s) * F32_BYTES for s, _, _ in p_rows)
     mu_nu = _lane_bytes([r for r in opt_rows if r[0]], mesh)
     gb = 1 / 2**30
     memory = {
@@ -306,19 +499,66 @@ def plan_cell(cfg, shape, mesh, *, microbatches=1, count_flops=False,
         "params_gb": lane["params"] * gb, "opt_gb": lane["opt"] * gb,
         "batch_gb": lane["batch"] * gb, "cache_gb": lane["cache"] * gb,
         "state_bytes": lane["params"] + mu_nu,
-        "replica_gb": replica * gb,
-        "compute_lane_gb": (arg + replica) * gb,
+        "plan": "partitioned" if kind == "train" else "replica",
         "fits_card_at_rest": arg <= CARD_BYTES,
-        "fits_card_with_replica": arg + replica <= CARD_BYTES,
         "card": CARD,
         "output_gb": None, "temp_gb": None, "alias_gb": None,
         "code_mb": None,
     }
-    out = {"kind": kind, "groups": groups, "shape_proof_s": proof_s,
-           "memory": memory,
-           "collectives": _collectives(kind, mesh, p_rows, c_rows, groups)}
+    out = {"kind": kind, "groups": groups, "memory": memory}
+    t0 = time.perf_counter()
+    proved = prove or count_flops
+    if proved:
+        rows, args = _group_args(model, kind, structs, groups, shape.seq_len)
+    if kind != "train":
+        replica = _full_bytes(p_rows) + _cast_bytes(structs[0], cfg)
+        cache = max(_full_bytes(c_rows) // groups - lane["cache"], 0)
+        memory.update(replica_gb=replica * gb, lane_bytes=arg + replica
+                      + cache)
+        if proved:
+            run = lambda: _serve_group(model, kind, rows,  # noqa: E731
+                                       args)
+            group_flops = _flops(run) if count_flops else run()
+        out["collectives"] = _collectives(kind, mesh, p_rows, c_rows, groups)
+    elif proved:
+        params = tree_map(lambda x, sh: shard(x, mesh, sh.spec),
+                          structs[0].params, shardings[0].params)
+        got = {}
+        run = lambda: got.setdefault("run", _train_group(  # noqa: E731
+            model, args, mesh, params, microbatches))
+        group_flops = _flops(run) if count_flops else run()
+        plan, fwd, outer = got["run"]
+        if count_flops:
+            # lanes 2.. ran as lane 1; their backward is twice the forward
+            group_flops += max(plan.M - 2, 0) * (
+                plan.lane_flops + 2 * fwd["flops"])
+        owned, copied = _owned_grad_bytes(p_rows, mesh)
+        out["collectives"] = _collectives(kind, mesh, p_rows, c_rows, groups,
+                                          plan, fwd, sum(copied))
+        rows_mb = rows // microbatches
+        period = _period_saved(model, plan, rows_mb)
+        _update_on_shards(structs[0].params, shardings[0].params, mesh)
+        norm_leaf = max(math.prod(s) for s, _, _ in p_rows) * F32_BYTES
+        full = cfg.remat == "full"
+        gathered, act, per_lane = [], [], []
+        for m, i in enumerate(plan.lanes):
+            j = min(m, 1)           # lanes 2.. computed as lane 1
+            gathered.append(plan.top_bytes[m] + 2 * plan.period_bytes[m]
+                            if full else fwd["gathered"][m])
+            act.append(outer[j] + (period[j] if full else 0))
+            per_lane.append(arg + max(
+                2 * owned[i] + gathered[m] + act[m],
+                owned[i] + (norm_leaf if m == 0 else 0)))
+        memory.update(
+            gathered_gb=max(gathered) * gb, activation_gb=max(act) * gb,
+            grad_gb=2 * max(owned) * gb, norm_leaf_gb=norm_leaf * gb,
+            lane_bytes=max(per_lane))
+    out["shape_proof_s"] = time.perf_counter() - t0 if proved else None
+    if "lane_bytes" in memory:
+        memory["lane_gb"] = memory["lane_bytes"] * gb
+        memory["fits_card"] = memory["lane_bytes"] <= CARD_BYTES
     if count_flops:
-        out["flops_per_compute_lane"] = group_flops
+        out["flops_per_group"] = group_flops
         out["flops"] = group_flops * groups
     return out
 
@@ -439,7 +679,7 @@ def main(argv=None):
         if rec["ok"]:
             sp = rec["single_pod"]["memory"]
             print(f"    mem/lane: args {sp['argument_gb']:.2f} GB, "
-                  f"with the replica {sp['compute_lane_gb']:.2f} GB "
+                  f"the {sp['plan']} plan {sp['lane_gb']:.2f} GB "
                   f"(of {CARD}'s 80 GB)", flush=True)
     return 0 if all(r["ok"] for r in recs) else 1
 

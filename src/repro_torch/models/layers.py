@@ -235,6 +235,21 @@ def _softmax_attend(qg, k, v, mask=None):
     return torch.einsum("bkrqs,bskd->bqkrd", probs, v)   # (B, Sq, K, rep, hd)
 
 
+def project_kv(params, src, *, cfg, n_kv, positions=None):
+    """K and V of ``src`` (B, S, d) in ``n_kv`` heads, ``k`` rotated at
+    ``positions`` (self attention; None for cross attention)."""
+    k = src @ params["wk"]
+    v = src @ params["wv"]
+    if "bk" in params:
+        k = k + params["bk"]
+        v = v + params["bv"]
+    k = _split_heads(k, n_kv, cfg.hd)
+    v = _split_heads(v, n_kv, cfg.hd)
+    if positions is not None:
+        k = rope(k, positions, theta=cfg.rope_theta)
+    return k, v
+
+
 def attention(
     params,
     x,
@@ -247,17 +262,31 @@ def attention(
     window: int | None = None,
     cache=None,              # {"k","v": (B, S_max, K, hd), "pos": int} decode cache
     static_kv=None,          # precomputed {"k","v"} (cross-attn decode)
+    heads=None,              # (query heads, KV heads) of params' columns
+    q_rows=None,             # (start, stop): only these query rows
+    kv_proj=None,            # (k, v) already projected (`project_kv`)
 ):
     """GQA attention. Returns (out, new_cache).
 
     Query head h reads KV group h // (H // K).  A decode ``cache`` is
     written in place at ``pos`` and returned with ``pos`` advanced.  Long
     sequences without a cache use blockwise flash attention (O(S*block)
-    memory instead of O(S^2))."""
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    xn = rms_norm(params["ln"], x, eps=cfg.norm_eps)
+    memory instead of O(S^2)).
 
-    q = xn @ params["wq"]
+    A lane of the partitioned train step (`distributed.partition`) calls
+    it on its share: ``heads`` gives the heads its columns of ``wq`` /
+    ``wk`` / ``wv`` (and rows of ``wo``) hold, and the output is its
+    partial sum; ``q_rows`` keeps query rows ``start:stop`` against the
+    whole K/V (the reference's ``ctx`` mode), which ``kv_proj`` gives
+    when the lanes projected it a share each."""
+    H, K = heads if heads is not None else (cfg.n_heads, cfg.n_kv_heads)
+    hd = cfg.hd
+    xn = rms_norm(params["ln"], x, eps=cfg.norm_eps)
+    q_pos = positions
+    if q_rows is not None:
+        q_pos = positions[:, q_rows[0]:q_rows[1]]
+
+    q = (xn if q_rows is None else xn[:, q_rows[0]:q_rows[1]]) @ params["wq"]
     if "bq" in params:
         q = q + params["bq"]
     q = _split_heads(q, H, hd)
@@ -270,18 +299,15 @@ def attention(
         out = _softmax_attend(q.reshape(B, Sq, K, rep, hd), k, v)
         return out.reshape(B, Sq, H * hd) @ params["wo"], None
 
-    src = xn if kv is None else kv
-    k = src @ params["wk"]
-    v = src @ params["wv"]
-    if "bk" in params:
-        k = k + params["bk"]
-        v = v + params["bv"]
-    k = _split_heads(k, K, hd)
-    v = _split_heads(v, K, hd)
+    if kv_proj is not None:
+        k, v = kv_proj
+    else:
+        k, v = project_kv(params, xn if kv is None else kv, cfg=cfg,
+                          n_kv=K, positions=positions if kv is None
+                          else None)
 
-    if kv is None:  # self-attention: rope on q and k
-        q = rope(q, positions, theta=cfg.rope_theta)
-        k = rope(k, positions, theta=cfg.rope_theta)
+    if kv is None:  # self-attention: rope on q (k is rotated above)
+        q = rope(q, q_pos, theta=cfg.rope_theta)
         k_pos = positions
     else:
         k_pos = kv_positions
@@ -313,13 +339,13 @@ def attention(
             # Window layers skip provably-masked KV blocks.
             use_skip = window is not None and kv is None and Sq == Skv
             out = flash_attention(
-                qg, k, v, positions, k_pos,
+                qg, k, v, q_pos, k_pos,
                 causal=causal and kv is None, window=window,
                 kv_block=kv_block, block_skip=use_skip,
             )
             return out.reshape(B, Sq, H * hd) @ params["wo"], None
         mask = _attn_scores_mask(
-            positions[0], k_pos[0], window=window, causal=causal and kv is None
+            q_pos[0], k_pos[0], window=window, causal=causal and kv is None
         )[None, :, :]
 
     out = _softmax_attend(qg, k, v, mask)

@@ -4,7 +4,7 @@ parameters.
 
   model             = build_model(cfg, device=..., generator=...)
   logits, aux       = model.forward(batch)           # train/prefill path
-  loss, metrics     = model.loss(batch)
+  loss, metrics     = model.loss(batch[, layout=])
   cache             = model.init_cache(batch_size | batch, max_len, dtype)
   logits, cache     = model.decode_step(cache, last_tokens)
 
@@ -18,6 +18,12 @@ eager forward would otherwise copy every weight at every decode step;
 moving the model or loading weights drops it, and `refresh` drops it after
 weights were changed in place.  With autograd on, the cast is made afresh
 each call, so gradients reach the parameters.
+
+A `Layout` says where a forward pass takes its weights from and how it
+runs its embedding and loss: by default the model's own compute-dtype
+copy on its device; the partitioned train step passes its own to
+`loss` (`distributed.partition.GroupPlan.layout`), so one forward serves
+both.
 """
 from __future__ import annotations
 
@@ -80,6 +86,46 @@ def param_count(params) -> int:
     return int(math.prod(params.shape))
 
 
+class Layout:
+    """One forward pass's weights on the model's device: its
+    compute-dtype copy (`_Model.compute_params`).  The partitioned train
+    step's layout (`distributed.partition`) has the same members:
+
+    ``device``; ``stack_kw``, `run_stack`'s keywords beyond the model's;
+    ``leaf(name)``, a top-level leaf (``final_norm``, ``pos_embed``,
+    ``enc_norm``); ``stack(name, seq)``, the periods of stack ``name``
+    (``enc_stack`` or ``s{i}``) as `run_stack` takes them, ``seq`` its
+    query length; ``embed(tokens)``; ``xent(xf, window, labels)``, the
+    mean cross entropy of rows ``window`` of the head's logits of the
+    normed hidden states ``xf``."""
+
+    stack_kw: dict = {}
+
+    def __init__(self, model):
+        self.cfg = model.cfg
+        self.device = model.device
+        self.p = model.compute_params()
+
+    def leaf(self, name):
+        return self.p[name]
+
+    def stack(self, name, seq):
+        return self.p[name] if name == "enc_stack" else self.p["stacks"][name]
+
+    def embed(self, tokens):
+        return embed(self.p["embed"], tokens, self.cfg)
+
+    def logits(self, xf):
+        cfg = self.cfg
+        tied = cfg.tie_embeddings and not cfg.is_encoder_decoder
+        return unembed(self.p["embed"] if tied else self.p["lm_head"], xf,
+                       cfg, tied=tied)
+
+    def xent(self, xf, window, labels):
+        return softmax_xent(self.logits(xf)[:, window[0]:window[1], :],
+                            labels)
+
+
 class _Model(nn.Module):
     """What `LM` and `EncDec` share: the parameter tree and its cached
     compute-dtype copy."""
@@ -87,6 +133,7 @@ class _Model(nn.Module):
     def _init_common(self, cfg, device, generator):
         self.cfg = cfg.validate()
         self._compute = None
+        self._released = None
         meta = device is not None and torch.device(device).type == "meta"
         return (torch.device("meta") if meta else resolve(device),
                 generator if generator is not None
@@ -109,6 +156,21 @@ class _Model(nn.Module):
     def refresh(self):
         """Drop the compute-dtype copy (after weights changed in place)."""
         self._compute = None
+
+    def release(self):
+        """Move the parameters to ``meta`` (shapes, no storage): the
+        sharded train step holds them as shards on its lanes and calls
+        this once it has sharded them, so no lane keeps a whole copy."""
+        if self.device.type != "meta":
+            self._released = self.device
+            self.to("meta")
+
+    def reclaim(self):
+        """Undo `release`: storage (uninitialised) on the old device, for
+        weights to be copied in (the trainer's restore)."""
+        if self._released is not None:
+            self.to_empty(device=self._released)
+            self._released = None
 
     def _apply(self, fn, *args, **kwargs):
         self._compute = None
@@ -166,36 +228,41 @@ class LM(_Model):
                 cfg.param_dtype, dev))
 
     # ---------------------------------------------------------- forward ---
-    def forward(self, batch):
+    def _hidden(self, batch, lay):
+        """The normed final hidden states and the auxiliary losses."""
         cfg = self.cfg
-        p = self.compute_params()
-        tokens = batch["tokens"].to(self.device)
-        x = embed(p["embed"], tokens, cfg)
+        tokens = batch["tokens"].to(lay.device)
+        x = lay.embed(tokens)
         if cfg.num_patches:
-            img = batch["image_embeds"].to(self.device, cfg.compute_dtype)
+            img = batch["image_embeds"].to(lay.device, cfg.compute_dtype)
             x = torch.cat([img, x], dim=1)
         S = x.shape[1]
-        positions = torch.arange(S, device=self.device)[None, :]
-        aux = ZERO_AUX(self.device)
+        positions = torch.arange(S, device=lay.device)[None, :]
+        aux = ZERO_AUX(lay.device)
         for i, st in enumerate(self.stack_specs):
-            x, a, _ = run_stack(p["stacks"][f"s{i}"], x, st, cfg,
-                                positions=positions)
+            x, a, _ = run_stack(lay.stack(f"s{i}", S), x, st, cfg,
+                                positions=positions, **lay.stack_kw)
             aux = _acc_aux(aux, a)
-        return self._head(p, x), aux
+        return rms_norm(lay.leaf("final_norm"), x, eps=cfg.norm_eps), aux
 
-    def loss(self, batch):
+    def forward(self, batch):
+        lay = Layout(self)
+        xf, aux = self._hidden(batch, lay)
+        return lay.logits(xf), aux
+
+    def loss(self, batch, layout=Layout):
+        """Loss and metrics of ``batch``; ``layout`` makes the pass's
+        `Layout` from the model."""
         cfg = self.cfg
-        logits, aux = self.forward(batch)
-        tokens = batch["tokens"].to(self.device)
+        lay = layout(self)
+        xf, aux = self._hidden(batch, lay)
+        tokens = batch["tokens"].to(lay.device)
         if cfg.num_patches:
             P = cfg.num_patches
-            S_text = tokens.shape[1]
-            lg = logits[:, P - 1 : P + S_text - 1, :]
-            labels = tokens
+            window, labels = (P - 1, P + tokens.shape[1] - 1), tokens
         else:
-            lg = logits[:, :-1, :]
-            labels = tokens[:, 1:]
-        ce = softmax_xent(lg, labels)
+            window, labels = (0, xf.shape[1] - 1), tokens[:, 1:]
+        ce = lay.xent(xf, window, labels)
         total = (
             ce
             + cfg.moe_aux_weight * aux["moe_lb_loss"]
@@ -263,47 +330,53 @@ class EncDec(_Model):
             gen, (cfg.d_model, cfg.vocab_size), cfg.d_model ** -0.5,
             cfg.param_dtype, dev))
 
-    def encode(self, p, frames):
+    def encode(self, lay, frames):
         cfg = self.cfg
-        x = frames.to(self.device, cfg.compute_dtype) \
-            + p["pos_embed"].to(cfg.compute_dtype)[None]
-        positions = torch.arange(x.shape[1], device=self.device)[None, :]
-        x, _, _ = run_stack(p["enc_stack"], x, self.enc_spec, cfg,
-                            positions=positions)
-        return rms_norm(p["enc_norm"], x, eps=cfg.norm_eps)
+        x = frames.to(lay.device, cfg.compute_dtype) \
+            + lay.leaf("pos_embed").to(cfg.compute_dtype)[None]
+        positions = torch.arange(x.shape[1], device=lay.device)[None, :]
+        x, _, _ = run_stack(lay.stack("enc_stack", x.shape[1]), x,
+                            self.enc_spec, cfg, positions=positions,
+                            **lay.stack_kw)
+        return rms_norm(lay.leaf("enc_norm"), x, eps=cfg.norm_eps)
 
-    def forward(self, batch):
+    def _hidden(self, batch, lay):
         cfg = self.cfg
-        p = self.compute_params()
-        enc_out = self.encode(p, batch["enc_frames"])
-        x = embed(p["embed"], batch["tokens"].to(self.device), cfg)
-        positions = torch.arange(x.shape[1], device=self.device)[None, :]
-        aux = ZERO_AUX(self.device)
+        enc_out = self.encode(lay, batch["enc_frames"])
+        x = lay.embed(batch["tokens"].to(lay.device))
+        positions = torch.arange(x.shape[1], device=lay.device)[None, :]
+        aux = ZERO_AUX(lay.device)
         for i, st in enumerate(self.stack_specs):
             x, a, _ = run_stack(
-                p["stacks"][f"s{i}"], x, st, cfg, positions=positions,
-                enc_out=enc_out,
+                lay.stack(f"s{i}", x.shape[1]), x, st, cfg,
+                positions=positions, enc_out=enc_out, **lay.stack_kw,
             )
             aux = _acc_aux(aux, a)
-        return self._head(p, x), aux
+        return rms_norm(lay.leaf("final_norm"), x, eps=cfg.norm_eps), aux
 
-    def loss(self, batch):
-        logits, aux = self.forward(batch)
-        tokens = batch["tokens"].to(self.device)
-        ce = softmax_xent(logits[:, :-1, :], tokens[:, 1:])
+    def forward(self, batch):
+        lay = Layout(self)
+        xf, aux = self._hidden(batch, lay)
+        return lay.logits(xf), aux
+
+    def loss(self, batch, layout=Layout):
+        lay = layout(self)
+        xf, aux = self._hidden(batch, lay)
+        tokens = batch["tokens"].to(lay.device)
+        ce = lay.xent(xf, (0, xf.shape[1] - 1), tokens[:, 1:])
         return ce, {"ce": ce, **aux}
 
     @torch.no_grad()
     def init_cache(self, batch, max_len: int, dtype=torch.bfloat16):
         """Runs the encoder and precomputes static cross K/V."""
         cfg = self.cfg
-        p = self.compute_params()
-        enc_out = self.encode(p, batch["enc_frames"])
+        lay = Layout(self)
+        enc_out = self.encode(lay, batch["enc_frames"])
         B = enc_out.shape[0]
         caches = {
             f"s{i}": init_stack_cache(
                 st, cfg, B, max_len, dtype, enc_out=enc_out,
-                params=p["stacks"][f"s{i}"],
+                params=lay.p["stacks"][f"s{i}"],
             )
             for i, st in enumerate(self.stack_specs)
         }

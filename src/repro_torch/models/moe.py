@@ -49,8 +49,14 @@ def _group_size(T: int, cfg) -> int:
     return g_size
 
 
-def moe(params, x, *, cfg):
-    """Returns (out, aux) where aux carries router losses for the train loss."""
+def moe(params, x, *, cfg, experts=None, with_aux=True):
+    """Returns (out, aux) where aux carries router losses for the train loss.
+
+    A lane of the partitioned train step (`distributed.partition`) passes
+    ``experts=(e0, e1)``, the experts its ``params["experts"]`` hold: the
+    router, dispatch and combine are computed whole, the lane runs its
+    experts (and its share of the shared MLP) and returns its partial
+    output; ``with_aux=False`` leaves the losses (aux None) to one lane."""
     B, S, d = x.shape
     xn = rms_norm(params["ln"], x, eps=cfg.norm_eps)
     T = B * S
@@ -79,6 +85,8 @@ def moe(params, x, *, cfg):
             * gate_vals[..., j][..., None, None]
         fill = fill + torch.sum(e_onehot * keep, dim=1)
 
+    if experts is not None:
+        combine = combine[:, :, experts[0]:experts[1]]
     dispatch = (combine > 0).to(xg.dtype)                         # (G, t, E, C)
     dispatched = torch.einsum("gtec,gtd->gecd", dispatch, xg)
 
@@ -90,8 +98,10 @@ def moe(params, x, *, cfg):
     out = torch.einsum("gtec,gecd->gtd", combine.to(xg.dtype), eout)
     out = out.reshape(B, S, d)
 
-    if cfg.n_shared_experts:
+    if cfg.n_shared_experts and "shared" in params:
         out = out + mlp(params["shared"], x, cfg=cfg)
+    if not with_aux:
+        return out, None
 
     # Router aux losses (Switch load-balance + z-loss), in f32.
     me = torch.mean(probs, dim=(0, 1))                             # mean prob/expert

@@ -131,7 +131,7 @@ def _acc_aux(a, b):
 
 def run_stack(
     params, x, stack: StackSpec, cfg, *, positions, enc_out=None,
-    caches=None, decode=False,
+    caches=None, decode=False, block_fn=apply_block, scope=None,
 ):
     """Run the periods in order. ``params`` (and ``caches`` when decoding)
     are lists over periods.  Returns (x, aux, new_caches).
@@ -140,13 +140,27 @@ def run_stack(
     (``jax.checkpoint`` of each period): while autograd is on and not
     decoding, each period runs under ``torch.utils.checkpoint``
     (non-reentrant), which keeps only its input and recomputes the rest
-    in the backward pass.  It changes no value."""
+    in the backward pass.  It changes no value.
+
+    The partitioned train step (`distributed.partition`) passes a
+    callable a period in ``params`` (it gathers the period's weights, so
+    under remat they are gathered again in the recompute rather than
+    kept), its own ``block_fn`` and a ``scope`` (a context manager
+    factory) that every period's run, recompute included, is held in."""
     remat = cfg.remat == "full" and not decode and torch.is_grad_enabled()
 
     def period(p, x, aux, cache):
+        if scope is None:
+            return period_body(p, x, aux, cache)
+        with scope():
+            return period_body(p, x, aux, cache)
+
+    def period_body(p, x, aux, cache):
+        if callable(p):
+            p = p()
         ncs = {}
         for i, spec in enumerate(stack.period):
-            x, a, nc = apply_block(
+            x, a, nc = block_fn(
                 p[f"b{i}"], x, spec, cfg, positions=positions, enc_out=enc_out,
                 cache=cache[f"b{i}"] if decode else None, decode=decode,
             )

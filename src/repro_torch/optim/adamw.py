@@ -77,11 +77,17 @@ def init(params) -> OptState:
                     count=torch.zeros((), dtype=torch.int32))
 
 
-def _sum_of_squares(groups) -> torch.Tensor:
+def _sum_of_squares(groups, whole=None) -> torch.Tensor:
+    """sqrt of the sum of squares of the leaves of ``groups``, summed leaf
+    by leaf in order; ``whole(x)``, when given, makes each leaf from what
+    ``groups`` holds just before it is summed (the sharded train step
+    puts one pooled gradient leaf together at a time)."""
     total = None
     for group in groups:
         s = None
         for leaf in group:
+            if whole is not None:
+                leaf = whole(leaf)
             part = torch.sum(torch.square(leaf.to(F32)))
             s = part if s is None else s + part
         total = s if total is None else total + s

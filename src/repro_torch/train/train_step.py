@@ -13,31 +13,38 @@ serve or eval step runs on the new weights.
 Built under ``distributed.use_mesh(mesh)`` with a `launch.mesh.LaneMesh`
 of more than one lane, `make_train_step` gives the *sharded* step, the
 counterpart of the reference's ``jax.jit(make_train_step(m))`` under
-``use_mesh``:
+``use_mesh``, partitioned as the reference's specs and ``constrain``
+hints partition it (`distributed.partition`):
 
 * at rest each lane holds exactly its shards of every parameter and of
   AdamW's ``mu`` and ``nu`` (`distributed.sharding.Sharded`, specs from
   ``param_pspecs`` under the divisibility guard: FSDP rows over ``data``,
   tensor-parallel dims over ``model``); a whole state given to the step
   (``init_state``, a restored checkpoint, a state of another mesh) is
-  sharded onto the mesh first, as ``jit``'s ``in_shardings`` place it;
+  sharded onto the mesh first, as ``jit``'s ``in_shardings`` place it,
+  in place in the state's own trees (as a donated argument: the whole
+  tensors are dropped as they are split), and the model's own parameters
+  are released (`LM.release`), so no lane keeps a whole copy;
 * the batch splits over the batch axes (``pod``, ``data``) in contiguous
   row blocks, one a data group; the rows must divide evenly;
-* each data group's first lane gathers the full parameters into a model
-  replica on that lane (the given model is group 0's) and runs the loss
-  and gradient on its rows, queued on its lane's stream;
-* gradients, loss and metrics are pooled over the data groups in lane
-  order as the microbatch loop adds them (float32 zeros, add in order, x
-  1/D); ``grad_norm`` and the clip scale come once from the pooled
-  gradient, in the reference's leaf order;
+* each data group's M model lanes compute its rows' loss and gradients,
+  each its share of the products (heads, the ``ctx`` rows, the MLP's
+  hidden dim, experts, the vocabulary over ``model``), gathering a
+  period's weights at a time over ``data`` inside the checkpointed
+  period function, so under remat they are gathered again in the
+  recompute and no lane holds a replica; Mamba2 blocks run whole on the
+  group's first lane;
+* each group's gradient comes back a shard at a time, and gradients,
+  loss and metrics are pooled over the data groups in lane order as the
+  microbatch loop adds them (float32 zeros, add in order, x 1/D), each
+  shard's on the first lane that holds it; ``grad_norm`` and the clip
+  scale come once from the pooled gradient, in the reference's leaf
+  order, one leaf put together at a time;
 * each lane runs ``adamw.update`` on its own shards.
 
-So a ``(D, M)`` step equals a one-device step with ``microbatches=D``,
-bit for bit.  What it does not do: split the products over ``model``.
-XLA's partitioner does that for the reference, from its ``constrain``
-hints; here the model lanes shard storage and the optimizer step, not
-the forward pass, and each replica holds the whole model while it
-computes.  Both are levers for the performance phase (ROADMAP queue 2).
+So a ``(D, 1)`` step equals a one-device step with ``microbatches=D``,
+bit for bit, and a ``(D, M)`` step matches it to float32 rounding (the
+lanes' partial sums added in float32).
 
 `make_serve_step(model)` builds the one-token greedy decode step;
 `make_prefill_step(model)` the forward-only prefill step.  The model owns
@@ -45,13 +52,13 @@ its parameters, so these steps take none.
 """
 from __future__ import annotations
 
-import copy
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..distributed import sharding
+from ..distributed import partition, sharding
 from ..launch.mesh import LaneMesh, lane_context, sync_lanes
 from ..optim import adamw
 from ..optim.adamw import AdamWConfig, OptState
@@ -91,46 +98,61 @@ def _to_device(batch, device):
     return out
 
 
-def _grads_of(model, leaves, batch):
+def _grads_of(loss_fn, leaves, batch):
     with torch.enable_grad():
-        loss, metrics = model.loss(batch)
+        loss, metrics = loss_fn(batch)
         gs = torch.autograd.grad(loss, leaves, allow_unused=True)
     gs = [torch.zeros_like(p, dtype=F32) if g is None else g
           for p, g in zip(leaves, gs)]
     return loss.detach(), {k: metrics[k].detach() for k in _METRICS}, gs
 
 
-def _mean_of(parts, device):
-    """Gradients, loss and metrics of ``parts`` (an iterable of ``(loss,
-    metrics, grads)``, one a microbatch or a data group, taken one at a
-    time) added in order from float32 zeros on ``device``, then scaled by
-    ``1 / n``."""
-    acc_g = acc_l = acc_m = None
-    n = 0
-    for l, m, g in parts:
-        n += 1
-        if acc_g is None:
-            acc_g = [torch.zeros(x.shape, dtype=F32, device=device)
-                     for x in g]
-            acc_l = torch.zeros((), dtype=F32, device=device)
-            acc_m = {k: torch.zeros((), dtype=F32, device=device)
-                     for k in _METRICS}
-        acc_g = [a + gi.to(device) for a, gi in zip(acc_g, g)]
-        acc_l = acc_l + l.to(device)
-        acc_m = {k: acc_m[k] + m[k].to(device) for k in _METRICS}
-    inv = 1.0 / n
-    return (acc_l * inv, {k: v * inv for k, v in acc_m.items()},
-            [g * inv for g in acc_g])
+class _Mean:
+    """Gradients, loss and metrics of microbatches or data groups, added
+    in place one at a time, in order, from float32 zeros (each gradient
+    on its own device; loss and metrics on ``device``), then scaled by
+    ``1 / n``: the reference's scan over microbatches."""
+
+    def __init__(self, device):
+        self.device = device
+        self.n = 0
+        self.grads = None
+
+    def add(self, loss, metrics, grads, stream=None):
+        if self.grads is None:
+            self.grads = [torch.zeros(g.shape, dtype=F32, device=g.device)
+                          for g in grads]
+            self.loss = torch.zeros((), dtype=F32, device=self.device)
+            self.metrics = {k: torch.zeros((), dtype=F32, device=self.device)
+                            for k in _METRICS}
+        for a, g in zip(self.grads, grads):
+            a.add_(g.to(a.device))
+            if stream is not None and g.is_cuda:
+                g.record_stream(stream)
+        self.loss.add_(loss.to(self.device))
+        for k in _METRICS:
+            self.metrics[k].add_(metrics[k].to(self.device))
+        self.n += 1
+
+    def mean(self):
+        inv = 1.0 / self.n
+        for t in (*self.grads, self.loss, *self.metrics.values()):
+            t.mul_(inv)
+        return self.loss, self.metrics, self.grads
 
 
-def _loss_and_grads(model, leaves, batch, microbatches):
-    batch = _to_device(batch, model.device)
+def _loss_and_grads(loss_fn, leaves, batch, microbatches, device):
+    """``loss_fn(batch)``'s loss and metrics and the gradient of each of
+    ``leaves`` (zeros where unused), ``batch`` split into
+    ``microbatches`` and averaged (`_Mean`, on ``device``)."""
     if microbatches == 1:
-        return _grads_of(model, leaves, batch)
+        return _grads_of(loss_fn, leaves, batch)
+    acc = _Mean(device)
     mbs = _split_microbatches(batch, microbatches)
-    return _mean_of((_grads_of(model, leaves, {k: v[i] for k, v in
-                                               mbs.items()})
-                     for i in range(microbatches)), model.device)
+    for i in range(microbatches):
+        acc.add(*_grads_of(loss_fn, leaves, {k: v[i] for k, v in
+                                             mbs.items()}))
+    return acc.mean()
 
 
 def make_train_step(model, opt_cfg: AdamWConfig = AdamWConfig(), *,
@@ -146,8 +168,9 @@ def make_train_step(model, opt_cfg: AdamWConfig = AdamWConfig(), *,
 
     def train_step(state: TrainState, batch):
         leaves = list(adamw._leaves(state.params))
-        loss, metrics, grads = _loss_and_grads(model, leaves, batch,
-                                               microbatches)
+        loss, metrics, grads = _loss_and_grads(
+            model.loss, leaves, _to_device(batch, model.device),
+            microbatches, model.device)
         _, new_opt, om = adamw.update(grads, state.opt, state.params,
                                       opt_cfg, lr_scale=sched(state.step))
         model.refresh()
@@ -159,79 +182,107 @@ def make_train_step(model, opt_cfg: AdamWConfig = AdamWConfig(), *,
     return train_step
 
 
-def batch_axes_of(mesh) -> tuple:
-    """The mesh axes a batch splits over (the logical ``batch`` axis)."""
-    return tuple(a for a in sharding.LOGICAL_TO_PHYSICAL["batch"]
-                 if a in mesh.axis_names)
-
-
 def shard_state(state: TrainState, mesh, specs) -> TrainState:
     """``state`` with its parameters and moments as `Sharded` leaves on
     ``mesh`` under ``specs`` (a tree of specs shaped like the parameters):
     a whole leaf is split, a leaf sharded otherwise is gathered and split
-    again, a leaf already so sharded is kept."""
-    def place(x, spec):
-        if (isinstance(x, sharding.Sharded) and x.mesh is mesh
-                and x.spec == spec):
-            return x
-        return sharding.shard(sharding.whole(x).detach(), mesh, spec)
+    again, a leaf already so sharded is kept.  Each leaf is replaced in
+    ``state``'s own trees as soon as it is split (as a jit with donated
+    arguments takes its input), so a whole tensor nothing else holds is
+    freed then, and the whole state and its shards are never on the
+    lanes together."""
+    def place(t, spec):
+        for k in (t if isinstance(t, dict) else range(len(t))):
+            x = t[k]
+            if isinstance(x, (dict, list)):
+                place(x, spec[k])
+            elif not (isinstance(x, sharding.Sharded) and x.mesh is mesh
+                      and x.spec == spec[k]):
+                t[k] = sharding.shard(sharding.whole(x).detach(), mesh,
+                                      spec[k])
+        return t
 
-    def tree(t):
-        return sharding.tree_map(place, t, specs)
-
-    return TrainState(params=tree(state.params),
-                      opt=OptState(mu=tree(state.opt.mu),
-                                   nu=tree(state.opt.nu),
+    return TrainState(params=place(state.params, specs),
+                      opt=OptState(mu=place(state.opt.mu, specs),
+                                   nu=place(state.opt.nu, specs),
                                    count=state.opt.count),
                       step=state.step)
 
 
 def _make_sharded_step(model, opt_cfg, mesh, microbatches, sched):
-    groups = mesh.group_lanes(batch_axes_of(mesh))
+    groups = partition.group_lanes(mesh)
     D = len(groups)
-    if model.device != groups[0].device:
+    lane0 = mesh.lanes[0]
+    if model.device != lane0.device:
         raise ValueError(f"the model is on {model.device}, the mesh's first "
-                         f"lane on {groups[0].device}")
+                         f"lane on {lane0.device}")
     with sharding.use_mesh(mesh):
         specs = sharding.param_pspecs(model.params())
-    replicas = [model] + [None] * (D - 1)
-
-    def replica(g):
-        if replicas[g] is None:
-            model.refresh()
-            replicas[g] = copy.deepcopy(model).to(groups[g].device)
-        return replicas[g]
 
     def train_step(state: TrainState, batch):
+        first = next(iter(adamw._leaves(state.params)))
+        if not isinstance(first, sharding.Sharded) \
+                and first.device.type == "meta" != lane0.device.type:
+            raise ValueError("the state's parameters are on meta: the step "
+                             "released its model's; pass the state it "
+                             "returned")
+        model.release()
         state = shard_state(state, mesh, specs)
         B = next(iter(batch.values())).shape[0]
         if B % D:
             raise ValueError(f"a batch of {B} rows does not split over "
                              f"{D} data groups")
         rows = B // D
-        parts = []
-        for g, lane in enumerate(groups):
-            with lane_context(lane):
-                r = replica(g)
-                leaves = list(adamw._leaves(r.params()))
-                for p, s in zip(leaves, adamw._leaves(state.params)):
-                    sharding.gather(s, out=p)
-                r.refresh()
-                part = {k: v[g * rows:(g + 1) * rows]
-                        for k, v in batch.items()}
-                parts.append(_loss_and_grads(r, leaves, part, microbatches))
+        pool = _Mean(lane0.device)
+        for g, lanes in enumerate(groups):
+            home = mesh.lanes[lanes[0]]
+            # fresh autograd leaves a group: each group's backward runs
+            # on its own lanes' streams
+            proxies = partition.Proxies(state.params)
+            inputs = proxies.grad_inputs()
+            plan = partition.GroupPlan(model, mesh, lanes, proxies)
+            with lane_context(home):
+                part = _to_device({k: v[g * rows:(g + 1) * rows]
+                                   for k, v in batch.items()}, home.device)
+                loss_fn = functools.partial(model.loss, layout=plan.layout)
+                pool.add(*_loss_and_grads(loss_fn, inputs, part,
+                                          microbatches, home.device),
+                         stream=torch.cuda.current_stream(home.device)
+                         if home.stream is not None else None)
+            if home.stream is not None:
+                torch.cuda.current_stream(home.device).wait_stream(
+                    home.stream)
         sync_lanes(mesh)
-        loss, metrics, grads = _mean_of(parts, model.device)
-        del parts
-        gnorm = adamw.grad_norm(grads, model.params())
+        loss, metrics, pooled = pool.mean()
+        del inputs, plan, loss_fn, proxies.proxy
+        offsets, n = [], 0
+        for src in proxies.sources:
+            offsets.append(n)
+            n += len(src)
+
+        def whole_grad(k):
+            src = proxies.sources[k]
+            if len(src) == 1:
+                return pooled[offsets[k]]
+            t = torch.empty(proxies.leaves[k].shape, dtype=F32,
+                            device=lane0.device)
+            for j, (_, sl) in enumerate(src):
+                t[sl].copy_(pooled[offsets[k] + j])
+            return t
+
+        index = {id(s): k for k, s in enumerate(proxies.leaves)}
+        gnorm = adamw._sum_of_squares(
+            [[index[id(s)] for s in group]
+             for group in adamw.reference_order(state.params)],
+            whole=whole_grad)
         lr_scale = sched(state.step)
-        p_leaves = list(adamw._leaves(state.params))
+        p_leaves = proxies.leaves
         mu_leaves = list(adamw._leaves(state.opt.mu))
         nu_leaves = list(adamw._leaves(state.opt.nu))
         for i, lane in enumerate(mesh.lanes):
             with lane_context(lane):
-                g_i = [g[sharding.shard_slices(s.shape, mesh, s.spec, i)]
-                       .to(lane.device) for g, s in zip(grads, p_leaves)]
+                g_i = [pooled[offsets[k] + proxies.source_of(k, i)]
+                       .to(lane.device) for k in range(len(p_leaves))]
                 _, new_opt, om = adamw.update(
                     g_i, OptState(mu=[s.shards[i] for s in mu_leaves],
                                   nu=[s.shards[i] for s in nu_leaves],

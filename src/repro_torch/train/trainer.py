@@ -70,8 +70,9 @@ class Trainer:
         if last is not None:
             restored = ckpt_lib.restore(
                 cfg.ckpt_dir, last, train_state_to_reference(state, like=True))
-            state = train_state_from_reference(self.train_step.model,
-                                               restored)
+            model = self.train_step.model
+            model.reclaim()     # storage, if a sharded step released it
+            state = train_state_from_reference(model, restored)
             start = int(state.step)
             self._emit("resume", step=start)
 

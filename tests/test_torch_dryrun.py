@@ -204,7 +204,7 @@ def test_one_cell_end_to_end_on_meta(tmp_path, capsys):
     line = rec["flop_line"]
     assert line["n"] == 24 and line["counted"] == line["predicted"]
     assert rec["probes"]["2"]["flops"] < rec["probes"]["4"]["flops"] \
-        < sp["flops"] == sp["flops_per_compute_lane"] * 16
+        < sp["flops"] == sp["flops_per_group"] * 16
     assert 1.0 < sp["flops_over_model_flops"] < 1.5
     for key in ("temp_gb", "output_gb", "alias_gb", "code_mb"):
         assert sp["memory"][key] is None and rec["null_reasons"][key]
@@ -212,7 +212,8 @@ def test_one_cell_end_to_end_on_meta(tmp_path, capsys):
     c = sp["collectives"]
     assert set(dryrun.COLLECTIVES) | {"n_ops", "total"} == set(c)
     assert c["total"] == sum(c[k] for k in dryrun.COLLECTIVES) > 0
-    assert sp["memory"]["fits_card_with_replica"]
+    assert sp["memory"]["plan"] == "partitioned"
+    assert sp["memory"]["fits_card"]
 
 
 def test_import_sets_no_environment_variable():

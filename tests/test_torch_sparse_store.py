@@ -131,3 +131,33 @@ def test_writer_validates_inputs(tmp_path):
         w.append_csr(np.ones(3, np.float32), np.arange(3), [0, 2])
     with pytest.raises(ValueError, match="range"):
         w.append_csr(np.ones(2, np.float32), np.array([0, 10]), [0, 2])
+
+
+@pytest.mark.parametrize("seed", [4, 9])
+def test_dense_equals_the_reference(tmp_path, seed):
+    """``Corpus.dense`` against the reference's array, bit for bit (as
+    ``tests/test_sparse_store.py::test_write_corpus_matches_dense`` holds
+    the reference's store to it), and against the port's store."""
+    t = tmake_corpus(300, 500, topics={"t": ["x", "y"]}, seed=seed)
+    j = jmake_corpus(300, 500, topics={"t": ["x", "y"]}, seed=seed)
+    X = t.dense()
+    assert X.dtype == np.float32 and X.shape == (300, 500)
+    np.testing.assert_array_equal(X, j.dense())
+    store = tstore.write_corpus(t, str(tmp_path / "c"), shard_nnz=5_000)
+    np.testing.assert_allclose(store.to_dense(), X, rtol=0, atol=0)
+
+
+def test_dense_refuses_past_its_budget():
+    from repro_torch.data.corpus import DENSE_BYTE_BUDGET, Corpus
+
+    t = tmake_corpus(300, 500, seed=4)
+    need = 300 * 500 * 4
+    assert t.dense(max_bytes=need).shape == (300, 500)
+    with pytest.raises(MemoryError, match="repro_torch.sparse.write_corpus"):
+        t.dense(max_bytes=need - 1)
+    empty = np.zeros(0, np.int32)
+    big = Corpus(n_docs=DENSE_BYTE_BUDGET // 4000 + 1, vocab=["w"] * 1000,
+                 doc_idx=empty, word_idx=empty,
+                 counts=np.zeros(0, np.float32))
+    with pytest.raises(MemoryError, match="out-of-core sparse store"):
+        big.dense()
