@@ -94,7 +94,11 @@ words, 5 components, target cardinality 5):
   steps at full width, against ``--mesh 1x1 --microbatches 2`` (the
   same losses) and ``--mesh 1x1``, each lane's bytes at rest beside the
   dry-run's count, and its step-5 checkpoint resumed on ``4x1`` and
-  ``1x1`` (``lm_train_mesh``); the dense pooled statistics on a (2, 2)
+  ``1x1`` (``lm_train_mesh``); ``launch/train.py --arch mamba2-130m
+  --mesh 2x2`` at full width, 4 steps, its Mamba2 blocks split by head
+  over ``model``, against ``--mesh 1x1 --microbatches 2`` and ``--mesh
+  2x1``, each lane's gathered bytes for one Mamba2 period beside the
+  whole block's (``lm_train_mesh_ssm``); the dense pooled statistics on a (2, 2)
   lane mesh are held to a 2-lane data mesh bit for bit in
   ``baselines``.  The LM paths have no kernel of their own: the
   reference computes them with plain ``@`` and so does the port.
@@ -3690,9 +3694,9 @@ def _max_diff(a, b):
 
 
 def _mesh_run(root, name, mesh, steps, extra=(), *, ckpt_every=1000,
-              resume_from=None, tally=False):
-    """``launch/train.py`` in this process on ``--mesh mesh`` (qwen2-0.5b,
-    B 8, S 128), optionally resumed from the checkpoint directory
+              resume_from=None, tally=False, args=TRAIN_ARGS):
+    """``launch/train.py`` in this process on ``--mesh mesh`` (``args``:
+    qwen2-0.5b, B 8, S 128), optionally resumed from the checkpoint directory
     ``resume_from`` (linked into a directory of its own); the losses, ms
     a step (median of the steps after the first), peak memory and the
     whole final state on the card.  ``tally``: each lane's high-water of
@@ -3712,7 +3716,7 @@ def _mesh_run(root, name, mesh, steps, extra=(), *, ckpt_every=1000,
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with (GatherTally() if tally else contextlib.nullcontext()) as count:
-        res = launcher.main([*TRAIN_ARGS, "--mesh", mesh, "--steps",
+        res = launcher.main([*args, "--mesh", mesh, "--steps",
                              str(steps), "--ckpt-every", str(ckpt_every),
                              "--ckpt-dir", d, *extra])
     wall = time.perf_counter() - t0
@@ -3848,6 +3852,142 @@ def phase_lm_train_mesh(steps=6):
           "is above 14.6 GB")
 
 
+SSM_TRAIN_ARGS = ["--arch", "mamba2-130m", "--batch", "8", "--seq", "128"]
+# dt_bias, one scalar a head: its gradient sums terms of both signs over
+# every token and the head's channels, so bfloat16 rounding moves a larger
+# share of its update (0.169 at 2x2 against microbatches 2, where one
+# device without microbatches is 0.054 from it); a missing or wrong update
+# is still an error of 1 or more
+SSM_UPDATE_BARS = {"dt_bias": 0.3}
+
+
+def _ssm_period_bytes(cfg, M, itemsize):
+    """The bytes of one Mamba2 block a lane gathers at ``M`` lanes over
+    ``model`` in ``heads`` mode (``ln`` whole; the ``z``, ``x`` and ``dt``
+    columns of its heads and all of ``B`` and ``C`` of ``in_proj``; its
+    heads' ``x`` channels and all ``B``/``C`` ones of ``conv``; ``1/M``
+    of ``out_proj``, the per-head leaves and ``ssm_norm``), and of the
+    whole block."""
+    from repro_torch.models import mamba2
+
+    d_in, H, P, N, conv_dim = mamba2._dims(cfg)
+    d, W = cfg.d_model, cfg.ssm_conv
+    whole = (d + d * (2 * d_in + 2 * N + H) + W * conv_dim + 3 * H + d_in
+             + d_in * d)
+    dm, Hm = d_in // M, H // M
+    share = (d + d * (2 * dm + 2 * N + Hm) + W * (dm + 2 * N) + 3 * Hm + dm
+             + dm * d)
+    return share * itemsize, whole * itemsize
+
+
+def phase_lm_train_mesh_ssm(steps=4):
+    """``launch/train.py --arch mamba2-130m --batch 8 --seq 128 --steps 4``
+    at its published width (24 layers, d 768, 24 SSM heads of 64, state
+    128, 50,280 words) on 4 lanes forced onto the card: ``--mesh 2x2``,
+    whose Mamba2 blocks split by head over ``model`` (12 heads a lane;
+    `distributed.partition`), against ``--mesh 1x1 --microbatches 2``
+    with ``lm_train_mesh``'s bars (every loss within 5e-4 relative, the
+    final parameters and moments within 6e-4, each leaf's update within
+    0.1 of its norm, ``dt_bias``'s within 0.3: `SSM_UPDATE_BARS`), and
+    ``--mesh 1x1`` against it as the bfloat16 floor of those differences
+    (reported); ``--mesh 2x1`` against it bit for bit; each lane's
+    bytes at rest equal to the dry-run's count for (2, 2) at B 8, S 128;
+    each lane's gathered bytes for one Mamba2 period (counted by the
+    plan) equal to its share and below the whole block's.  Reported, not
+    gated: ms a step, peak memory, the card."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.distributed import partition
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    smi = nvidia_smi()
+    t_phase = time.perf_counter()
+    cfg = get_config("mamba2-130m")
+    dry = dryrun.plan_cell(
+        cfg, ShapeSpec("train_b8_s128", 128, 8, "train"),
+        make_dev_mesh((2, 2), ("data", "model"), device="meta"),
+        prove=False)["memory"]["state_bytes"]
+    share, block = _ssm_period_bytes(cfg, 2, cfg.compute_dtype.itemsize)
+    periods = {}
+    period = partition.GroupPlan._period
+
+    def count_period(plan, ptree, seq):
+        before = list(plan.gathered)
+        out = period(plan, ptree, seq)
+        for m, lane in enumerate(plan.lanes):
+            periods.setdefault(lane, plan.gathered[m] - before[m])
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_ssm_") as root, \
+            _forced_lanes(4):
+        partition.GroupPlan._period = count_period
+        try:
+            a, whole_a = _mesh_run(root, "2x2", "2x2", steps, tally=True,
+                                   args=SSM_TRAIN_ARGS)
+        finally:
+            partition.GroupPlan._period = period
+        mb2, whole_mb2 = _mesh_run(root, "1x1_microbatches_2", "1x1", steps,
+                                   ["--microbatches", "2"],
+                                   args=SSM_TRAIN_ARGS)
+        r21, whole_21 = _mesh_run(root, "2x1", "2x1", steps,
+                                  args=SSM_TRAIN_ARGS)
+        r21["max_abs_diff"] = _max_diff(whole_mb2, whole_21)
+        del whole_21
+        # the bfloat16 floor: the one-device step without microbatches
+        # against it, the same sums rounded in another order
+        r11, whole_11 = _mesh_run(root, "1x1", "1x1", steps,
+                                  args=SSM_TRAIN_ARGS)
+        r11["update_rel_err"] = _update_errors("mamba2-130m", whole_11,
+                                               whole_mb2)
+        r11["max_abs_diff"] = _max_diff(whole_11, whole_mb2)
+        r11["loss_max_rel_diff"] = max(
+            abs(x - y) / abs(y) for x, y in zip(r11["losses"], mb2["losses"]))
+        del whole_11
+        mb2["max_abs_diff"] = _max_diff(whole_a, whole_mb2)
+        mb2["update_rel_err"] = _update_errors("mamba2-130m", whole_a,
+                                               whole_mb2)
+        mb2["loss_max_rel_diff"] = max(
+            abs(x - y) / abs(y) for x, y in zip(a["losses"], mb2["losses"]))
+        del whole_a, whole_mb2
+        _lm_free()
+    runs = {"2x2": a, "1x1_microbatches_2": mb2, "2x1": r21, "1x1": r11}
+    for r in runs.values():
+        r.pop("dir")
+    lanes = sorted(periods)
+    row = dict(arch="mamba2-130m", batch=8, seq=128, steps=steps,
+               dryrun_state_bytes_per_lane=dry, runs=runs,
+               mamba_period_gathered_bytes=[periods[i] for i in lanes],
+               mamba_period_share_bytes=share,
+               mamba_block_whole_bytes=block,
+               seconds=time.perf_counter() - t_phase, card=smi)
+    emit("lm_train_mesh_ssm", **row)
+    print(f"lm_train_mesh_ssm mamba2-130m B 8 S 128: 2x2 "
+          f"{a['step_ms_median']:.1f} ms a step, 1x1 microbatches 2 "
+          f"{mb2['step_ms_median']:.1f}, 2x1 {r21['step_ms_median']:.1f}, "
+          f"1x1 {r11['step_ms_median']:.1f}; "
+          f"peak 2x2 {a['max_memory_allocated'] / 1e9:.2f} GB, microbatches "
+          f"2 {mb2['max_memory_allocated'] / 1e9:.2f}; a Mamba2 period "
+          f"gathered a lane {row['mamba_period_gathered_bytes']} B of the "
+          f"whole block's {block}; bytes at rest a lane {a['lane_bytes']} "
+          f"(dry-run {dry}); on {smi}", flush=True)
+    check(all(b == dry for b in a["lane_bytes"]),
+          f"lm_train_mesh_ssm: bytes at rest {a['lane_bytes']} != dry-run "
+          f"{dry}")
+    check(len(lanes) == 4 and all(periods[i] == share < block
+                                  for i in lanes),
+          f"lm_train_mesh_ssm: a Mamba2 period's gathered bytes "
+          f"{periods} against the share {share} (whole block {block})")
+    check(mb2["loss_max_rel_diff"] <= 5e-4 and mb2["max_abs_diff"] <= 6e-4,
+          f"lm_train_mesh_ssm: 2x2 against microbatches 2: losses "
+          f"{mb2['loss_max_rel_diff']}, state {mb2['max_abs_diff']}")
+    bad = {k: v for k, v in mb2["update_rel_err"].items()
+           if v > SSM_UPDATE_BARS.get(k, UPDATE_BAR)}
+    check(not bad, f"lm_train_mesh_ssm: 2x2's updates against "
+          f"microbatches 2's: {bad}")
+    check(r21["losses"] == mb2["losses"] and r21["max_abs_diff"] == 0.0,
+          f"lm_train_mesh_ssm: 2x1 differs from microbatches 2: {r21}")
+
+
 def main():
     import torch
 
@@ -3939,8 +4079,10 @@ def main():
     phase_lm_train_record()
     phase_lm_train_full_width()
     phase_lm_train()
-    # the sharded train step on a 2x2 lane mesh (no kernel of its own)
+    # the sharded train step on a 2x2 lane mesh (no kernel of its own):
+    # qwen2-0.5b, then mamba2-130m with its blocks split by head
     phase_lm_train_mesh()
+    phase_lm_train_mesh_ssm()
     kernels = [{
         "name": "bcd_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bcd_fused.cu",

@@ -4,8 +4,9 @@
     python3 scripts/lm_card.py [PHASE ...]
 
 PHASE is any of ``lm_record``, ``lm_full_width``, ``lm_serve``,
-``lm_train_record``, ``lm_train_full_width``, ``lm_train`` and
-``lm_train_mesh`` (default: all, in that order).  Each prints the JSON
+``lm_train_record``, ``lm_train_full_width``, ``lm_train``,
+``lm_train_mesh`` and ``lm_train_mesh_ssm`` (default: all, in that
+order).  Each prints the JSON
 lines ``chip_smoke.py`` prints
 for it and fails as it does; the SPCA phases and the kernel table are not
 run, so no kernel is built.  Then the card's name and power limit.
@@ -16,7 +17,8 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHASES = ("lm_record", "lm_full_width", "lm_serve", "lm_train_record",
-          "lm_train_full_width", "lm_train", "lm_train_mesh")
+          "lm_train_full_width", "lm_train", "lm_train_mesh",
+          "lm_train_mesh_ssm")
 
 
 def main(argv):

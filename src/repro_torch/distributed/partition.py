@@ -36,15 +36,24 @@ embedding and loss are the lanes' shares:
 * embedding and head: vocabulary over ``model``; the lookup is masked to
   the lane's rows and summed, the loss is a vocab-parallel cross entropy
   (max, then the sum of exponentials, then the label's logit, each
-  across the lanes), so the ``(B, S, V)`` logits are never on one lane.
+  across the lanes), so the ``(B, S, V)`` logits are never on one lane;
+* Mamba2, with ``ssm_heads % M == 0``: lane ``m`` takes ``H/M`` heads.
+  ``in_proj`` packs ``[z, x, B, C, dt]`` in one dim and ``conv`` ``[x,
+  B, C]``, so a lane gathers several column ranges of each (its heads'
+  ``z``, ``x`` and ``dt`` columns and all of ``B`` and ``C``: one B/C
+  group; `mamba2.head_columns`), wherever the shards at rest cut them,
+  and computes the B/C convolution and the ``C B^T`` scores in full; the
+  per-head leaves and ``ssm_norm`` by head, ``out_proj``'s rows.
+  ``ssm_norm`` is an RMS norm over all ``d_in`` channels: each lane
+  sends its float32 sum of squares, home adds them in lane order and
+  divides by ``d_in``, and each lane scales its channels by the result
+  and returns its partial output (two rounds, `GroupPlan._mamba`).
 
 Partial outputs are added on the group's first lane ("home") in lane
 order, in float32, and cast once; ``ctx`` rows are put side by side.
 Where the divisibility guard of `sharding.resolve` left a product's
 leaves whole over ``model``, or its split would not give whole heads, the
-product runs whole on home.  Mamba2 blocks are not split over ``model``
-(``in_proj`` packs z, x, B, C and dt in one dim): their leaves are
-gathered whole on home and computed there.  With ``M == 1`` every product
+product runs whole on home.  With ``M == 1`` every product
 is the one-device model's own code, so a ``(D, 1)`` step equals the
 one-device step with ``microbatches=D`` bit for bit.
 
@@ -121,26 +130,36 @@ class Proxies:
 
 class _Gather(torch.autograd.Function):
     """A leaf's region for one lane, gathered from its proxies and cast;
-    the backward gives each proxy its slice of the gradient in the
+    the backward gives each proxy (``sources``, one a distinct shard the
+    plan reads, in `_distinct` order) its parts of the gradient in the
     leaf's dtype, copied into a tensor of its own."""
 
     @staticmethod
     def forward(ctx, s, lane, region, dtype, plan, *sources):
         ctx.plan, ctx.dtype = plan, s.dtype
-        ctx.sources = [(t.shape, t.device) for t in sources]
+        ctx.sources = [(i, t.shape, t.device)
+                       for i, t in zip(_distinct(plan), sources)]
         return sharding.gather(s, lane=lane, region=region, dtype=dtype)
 
     @staticmethod
     def backward(ctx, grad):
         out = []
-        for (_, at, part), (shape, dev) in zip(ctx.plan, ctx.sources):
-            t = (torch.empty if part is None or dev.type == "meta"
+        for i, shape, dev in ctx.sources:
+            parts = [(at, part) for j, at, part in ctx.plan if j == i]
+            whole = len(parts) == 1 and parts[0][1] is None
+            t = (torch.empty if whole or dev.type == "meta"
                  else torch.zeros)(shape, dtype=ctx.dtype, device=dev)
             if dev.type != "meta":
-                (t if part is None else t[part]).copy_(grad[at])
+                for at, part in parts:
+                    (t if part is None else t[part]).copy_(grad[at])
             out.append(t)
         return (None, None, None, None, None, *out)
 
+
+def _distinct(plan) -> list:
+    """The lanes whose shards a gather plan reads, each once, in plan
+    order."""
+    return list(dict.fromkeys(i for i, _, _ in plan))
 
 
 # ----------------------------------------------------------------- plan ---
@@ -217,20 +236,18 @@ class GroupPlan:
         return lane_context(self.mesh.lanes[self.lanes[m]])
 
     def _take(self, proxy, m: int, whole: bool, stacked: bool,
-              rows=None):
+              region=None):
         """Leaf ``proxy`` gathered for lane ``m`` through `_Gather`: over
-        the batch axes (``whole``: and ``model``), or rows ``rows`` of
-        dim 0 whatever shards they cut; cast as `cast_params` casts."""
+        the batch axes (``whole``: and ``model``), or ``region`` (a slice
+        a dim or a tuple of slices laid side by side, whatever shards they
+        cut: `sharding.gather_plan`); cast as `cast_params` casts."""
         lane = self.lanes[m]
-        if rows is None:
+        if region is None:
             region = sharding.region_slices(
                 proxy, lane, self.whole_axes if whole else self.slice_axes)
-        else:
-            region = (slice(*rows),) + tuple(slice(0, n)
-                                             for n in proxy.shape[1:])
         plan = sharding.gather_plan(proxy, region)
         out = _Gather.apply(proxy, lane, region, self._dtype(proxy, stacked),
-                            plan, *(proxy.shards[i] for i, _, _ in plan))
+                            plan, *(proxy.shards[i] for i in _distinct(plan)))
         self.gathers[m] += 1
         self.gathered[m] += out.numel() * out.element_size()
         return out
@@ -241,7 +258,26 @@ class GroupPlan:
         if isinstance(tree, dict):
             return {k: self._tree(v, m, whole, stacked, rows)
                     for k, v in tree.items()}
-        return self._take(tree, m, whole, stacked, rows)
+        region = None if rows is None else (slice(*rows),) + tuple(
+            slice(0, n) for n in tree.shape[1:])
+        return self._take(tree, m, whole, stacked, region)
+
+    def _heads_tree(self, sub, m):
+        """Lane ``m``'s Mamba2 mixer in ``heads`` mode: ``ln`` whole, and
+        of every other leaf the columns (rows of ``out_proj``) of its
+        heads (`mamba2.head_columns`: all of B and C)."""
+        Hm = self.cfg.ssm_heads // self.M
+        cols = mamba2.head_columns(self.cfg, (m * Hm, (m + 1) * Hm))
+        tree = {}
+        for k, p in sub.items():
+            if k not in cols:
+                tree[k] = self._take(p, m, True, True)
+                continue
+            pieces = tuple(slice(*c) for c in cols[k])
+            full = [slice(0, n) for n in p.shape]
+            full[0 if k == "out_proj" else -1] = pieces
+            tree[k] = self._take(p, m, True, True, tuple(full))
+        return tree
 
     def _vocab_split(self, name) -> bool:
         p = self.proxies.tree.get(name)
@@ -270,10 +306,10 @@ class GroupPlan:
         cfg, M = self.cfg, self.M
         modes = {}
         for name, sub in block.items():
-            # Mamba2 is not split over model: its in_proj packs z, x, B,
-            # C and dt in one dim; its leaves are gathered whole on home
-            if M == 1 or name == "mixer_ssm":
+            if M == 1:
                 modes[name] = "home"
+            elif name == "mixer_ssm":
+                modes[name] = "heads" if _ssm_split(sub, cfg, M) else "home"
             elif name in ("mixer_attn", "cross"):
                 heads = heads_shardable(cfg.n_kv_heads, M) and all(
                     _names_model(sub[k].spec, -1) for k in sub
@@ -307,6 +343,8 @@ class GroupPlan:
             if mode == "home":
                 if m == 0:
                     tree[name] = self._tree(sub, 0, True, True)
+            elif name == "mixer_ssm":
+                tree[name] = self._heads_tree(sub, m)
             elif name == "ffn_moe":
                 Em = self.cfg.n_experts // self.M
                 t = {"ln": self._tree(sub["ln"], m, True, True),
@@ -406,7 +444,7 @@ class GroupPlan:
         mixer, ffn = spec
         aux = None
         if mixer == "mamba":
-            out = mamba2.mamba_mixer(share.trees[0]["mixer_ssm"], x, cfg=cfg)
+            out = self._mamba(share, x)
         else:
             out = self._attention(
                 share, "mixer_attn", x, positions, None, None,
@@ -470,6 +508,30 @@ class GroupPlan:
                 q_rows=(m * rows, (m + 1) * rows), kv_proj=(k, v),
                 **kw)[0],
             x, positions, kv, kv_positions, k, v), dim=1)
+
+    def _mamba(self, share, x):
+        """The Mamba2 mixer; in ``heads`` mode in two rounds: each lane's
+        gated SSD of its heads and its float32 sum of squares, added on
+        home in lane order into ``ssm_norm``'s mean over all ``d_in``
+        channels; then each lane's channels scaled by it times its rows
+        of ``out_proj``, the partial outputs added."""
+        cfg = self.cfg
+        trees = [t.get("mixer_ssm") for t in share.trees]
+        if share.modes["mixer_ssm"] == "home":
+            return mamba2.mamba_mixer(trees[0], x, cfg=cfg)
+        gated = [None] * self.M
+
+        def lane_sumsq(m, x):
+            gated[m] = mamba2.mamba_gated(trees[m], x, cfg=cfg)
+            return mamba2.gated_sumsq(gated[m])
+
+        d_in = cfg.ssm_expand * cfg.d_model
+        ss = self.sum(self.run(lane_sumsq, x))
+        inv = torch.rsqrt(ss / d_in + cfg.norm_eps)
+        out = self.sum(self.run(lambda m, inv: mamba2.mamba_project(
+            trees[m], gated[m], inv), inv))
+        gated.clear()
+        return out
 
     def _mlp(self, share, name, x):
         trees = [t.get(name) for t in share.trees]
@@ -569,6 +631,14 @@ class _Layout:
 
     def xent(self, xf, window, labels):
         return self.plan.xent(self.top, xf, window, labels)
+
+
+def _ssm_split(sub, cfg, M) -> bool:
+    """Mamba2 splits by head where the heads divide over ``M`` and every
+    leaf but ``ln`` is split over ``model`` at rest on its head dim."""
+    return cfg.ssm_heads % M == 0 and all(
+        _names_model(sub[k].spec, 0 if k == "out_proj" else -1)
+        for k in sub if k != "ln")
 
 
 def _mlp_split(sub) -> bool:

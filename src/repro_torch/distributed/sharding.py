@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
 import math
 import re
 import threading
@@ -410,22 +411,43 @@ def within(inner, outer) -> tuple:
                  for x, o in zip(inner, outer))
 
 
+def _pieces(r) -> tuple:
+    """A region's entry for one dim as ``((start, stop), ...)``: a slice,
+    or a tuple of slices laid side by side in that order."""
+    return tuple((x.start, x.stop) for x in (r if isinstance(r, tuple)
+                                             else (r,)))
+
+
+def region_shape(region) -> tuple:
+    """The shape `gather` gives ``region``: each dim's pieces' lengths
+    summed."""
+    return tuple(sum(b - a for a, b in _pieces(r)) for r in region)
+
+
 def gather_plan(s: Sharded, region) -> tuple:
     """How `gather` puts ``region`` of ``s`` together: ``(lane, where in
-    the region, which part of the lane's shard or None for all of it)``
-    for each source of `gather_sources`."""
+    the output, which part of the lane's shard or None for all of it)``
+    for each source of `gather_sources` in each block of the region.  An
+    entry of ``region`` is a slice of its dim, or a tuple of slices whose
+    parts are laid side by side (several column ranges of one leaf: they
+    need not follow the shards, and one shard may serve several)."""
     return _plan(tuple(s.shape), s.mesh, s.spec,
-                 tuple((r.start, r.stop) for r in region))
+                 tuple(_pieces(r) for r in region))
 
 
 @functools.lru_cache(maxsize=65536)
 def _plan(shape, mesh, spec, region):
-    reg = tuple(slice(*r) for r in region)
     out = []
-    for i, sl in _sources(shape, mesh, spec, region):
-        own = shard_slices(shape, mesh, spec, i)
-        out.append((i, within(sl, reg),
-                    None if sl == own else within(sl, own)))
+    offsets = [[sum(b - a for a, b in pieces[:k]) for k in range(len(pieces))]
+               for pieces in region]
+    for block in itertools.product(*(range(len(p)) for p in region)):
+        sub = tuple(pieces[k] for pieces, k in zip(region, block))
+        reg = tuple(slice(*r) for r in sub)
+        for i, sl in _sources(shape, mesh, spec, sub):
+            own = shard_slices(shape, mesh, spec, i)
+            at = tuple(slice(x.start + off[k], x.stop + off[k]) for x, off, k
+                       in zip(within(sl, reg), offsets, block))
+            out.append((i, at, None if sl == own else within(sl, own)))
     return tuple(out)
 
 
@@ -437,7 +459,8 @@ def gather(s: Sharded, device=None, out: torch.Tensor | None = None, *,
     written into ``out``.  With ``lane``, only the part lane ``lane``
     holds widened over the mesh axes ``axes`` (`region_slices`: a gather
     over ``data`` gives a lane its ``model`` slice of an FSDP leaf), or
-    ``region`` (a tuple of slices, whatever shards it cuts), on that
+    ``region`` (a slice a dim, or a tuple of slices laid side by side,
+    whatever shards they cut: `gather_plan`), on that
     lane's device by default, in ``dtype`` (``s``'s by default: each
     shard is rounded as ``.to(dtype)`` rounds it)."""
     if region is None:
@@ -446,8 +469,8 @@ def gather(s: Sharded, device=None, out: torch.Tensor | None = None, *,
     if out is None:
         dev = device if device is not None else \
             s.mesh.lanes[0 if lane is None else lane].device
-        out = torch.empty(tuple(r.stop - r.start for r in region),
-                          dtype=dtype or s.dtype, device=dev)
+        out = torch.empty(region_shape(region), dtype=dtype or s.dtype,
+                          device=dev)
     if out.device.type == "meta":
         return out          # nothing to copy: a meta tensor has no data
     with torch.no_grad():

@@ -41,7 +41,9 @@ single-pod ``(16, 16)`` and multi-pod ``(2, 16, 16)``:
    the periods, the checkpointed periods' inputs among them, counted in
    the shape proof, and the most one period saves, counted in a run of
    each stack's first period without checkpointing, as its recompute
-   runs it; the backward pass's own temporaries are not counted); and on
+   runs it; the backward pass's own temporaries are not counted; a
+   lane's are the tensors of its own shares, so of a Mamba2 block split
+   by head its ``H/M`` heads of the ``(B, C, Q, Q, H)`` decay); and on
    the group's
    first lane the one whole gradient leaf the clip norm sums, once the
    backward pass is over.  Prefill and decode: the arguments, the whole

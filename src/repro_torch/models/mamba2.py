@@ -12,6 +12,9 @@ Decode path: the O(1)-per-token state recurrence
 carrying (conv_state, ssm_state).
 
 Single B/C group (n_groups=1), multi-head x (H heads of dim P = d_inner/H).
+The training forward also runs on a range of heads (`mamba_gated`,
+`gated_sumsq`, `mamba_project`): the partitioned train step splits the
+heads over its ``model`` lanes.
 """
 from __future__ import annotations
 
@@ -47,8 +50,9 @@ def init_mamba(gen, cfg, device=None) -> Params:
     )
 
 
-def _split_proj(proj, cfg):
-    d_in, H, P, N, _ = _dims(cfg)
+def _split_proj(proj, d_in, N, H):
+    """``in_proj``'s output as ``z, x, B, C, dt`` (of ``H`` heads whose
+    channels are ``d_in``)."""
     return torch.split(proj, [d_in, d_in, N, N, H], dim=-1)
 
 
@@ -63,10 +67,17 @@ def _causal_conv(seq, weight):
     return F.silu(out)
 
 
-def mamba_mixer(params, x, *, cfg):
-    """Training / prefill forward: (B, L, d) -> (B, L, d) via chunked SSD."""
+def mamba_gated(params, x, *, cfg):
+    """The chunked SSD of the heads ``params`` hold, gated and not yet
+    normalised: (B, L, d) -> (B, L, H' * P), in ``x``'s dtype.  ``params``
+    may be cut to a range of H' heads (`head_columns` gives the cuts):
+    ``in_proj``'s columns ``[z, x, B, C, dt]`` of those heads (all of B
+    and C: one B/C group), ``conv``'s channels ``[x, B, C]`` likewise,
+    ``A_log``, ``ssm_D`` and ``dt_bias`` by head."""
     Bsz, L, d = x.shape
-    d_in, H, P, N, conv_dim = _dims(cfg)
+    _, _, P, N, _ = _dims(cfg)
+    H = params["A_log"].shape[0]
+    d_in = H * P
     Q = min(cfg.ssm_chunk, L)
     while L % Q:
         Q //= 2
@@ -74,7 +85,7 @@ def mamba_mixer(params, x, *, cfg):
 
     xn = rms_norm(params["ln"], x, eps=cfg.norm_eps)
     proj = xn @ params["in_proj"]
-    z, xs, B_, C_, dtr = _split_proj(proj, cfg)
+    z, xs, B_, C_, dtr = _split_proj(proj, d_in, N, H)
     conv_out = _causal_conv(torch.cat([xs, B_, C_], -1), params["conv"])
     xs, B_, C_ = torch.split(conv_out, [d_in, N, N], dim=-1)
 
@@ -91,12 +102,17 @@ def mamba_mixer(params, x, *, cfg):
     Cc = C_.reshape(Bsz, nC, Q, N).to(F32)
     xc = xdt.reshape(Bsz, nC, Q, H, P)
 
-    # Intra-chunk: masked attention-like term.
+    # Intra-chunk: masked attention-like term.  The mask goes inside the
+    # exp as well: above the diagonal cum_q - cum_k >= 0 overflows float32
+    # once a chunk's decay passes ~88, and the where's gradient would then
+    # meet 0 * inf (the reference's form, NaN gradients from chunk ~128 at
+    # A = -1); below it both forms give the same values.
     scores = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)                 # (B,C,Q,Q)
-    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])  # (B,C,Q,Q,H)
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    wts = torch.where(causal[None, None, :, :, None],
-                      scores[..., None] * decay, 0.0)
+    mask = causal[None, None, :, :, None]
+    decay = torch.exp(torch.where(
+        mask, cum[:, :, :, None, :] - cum[:, :, None, :, :], -torch.inf))
+    wts = torch.where(mask, scores[..., None] * decay, 0.0)         # (B,C,Q,Q,H)
     y_intra = torch.einsum("bcqkh,bckhp->bcqhp", wts, xc)
 
     # Per-chunk terminal states.
@@ -118,8 +134,50 @@ def mamba_mixer(params, x, *, cfg):
     y = (y_intra + y_inter).reshape(Bsz, L, H, P)
     y = y + params["ssm_D"][None, None, :, None] * xh.to(F32)
     y = y.reshape(Bsz, L, d_in).to(x.dtype)
-    y = rms_norm(params["ssm_norm"], y * F.silu(z), eps=cfg.norm_eps)
+    return y * F.silu(z)
+
+
+def mamba_mixer(params, x, *, cfg):
+    """Training / prefill forward: (B, L, d) -> (B, L, d) via chunked SSD."""
+    y = mamba_gated(params, x, cfg=cfg)
+    y = rms_norm(params["ssm_norm"], y, eps=cfg.norm_eps)
     return y @ params["out_proj"]
+
+
+def gated_sumsq(g):
+    """A head range's share of ``ssm_norm``'s mean square: the float32 sum
+    of squares of its gated channels, (B, L, 1).  The norm spans all
+    ``d_in`` channels, so a split mixer adds the ranges' sums (in range
+    order) and divides by ``d_in`` before any range is scaled."""
+    g32 = g.to(F32)
+    return torch.sum(g32 * g32, dim=-1, keepdim=True)
+
+
+def mamba_project(params, g, inv_rms):
+    """A head range's share of the mixer's output: its gated channels
+    ``g`` scaled by ``inv_rms`` (``rsqrt(mean square + eps)`` over all
+    ``d_in`` channels, float32) and ``ssm_norm``'s scales, times its rows
+    of ``out_proj``; the ranges' shares add up to `mamba_mixer`'s."""
+    y = g.to(F32) * inv_rms
+    y = (y * (1.0 + params["ssm_norm"].to(F32))).to(g.dtype)
+    return y @ params["out_proj"]
+
+
+def head_columns(cfg, heads) -> dict:
+    """Where heads ``[h0, h1)`` lie in the mixer's leaves: for each leaf
+    split by head, the ``(start, stop)`` ranges of its last dim (rows of
+    ``out_proj``) that `mamba_gated` / `mamba_project` read, in order."""
+    d_in, H, P, N, _ = _dims(cfg)
+    h0, h1 = heads
+    ch = (h0 * P, h1 * P)
+    return {
+        "in_proj": [ch, (d_in + ch[0], d_in + ch[1]),
+                    (2 * d_in, 2 * d_in + 2 * N),
+                    (2 * d_in + 2 * N + h0, 2 * d_in + 2 * N + h1)],
+        "conv": [ch, (d_in, d_in + 2 * N)],
+        "A_log": [heads], "ssm_D": [heads], "dt_bias": [heads],
+        "ssm_norm": [ch], "out_proj": [ch],
+    }
 
 
 def init_mamba_cache(cfg, batch: int, dtype, device=None):
@@ -137,7 +195,7 @@ def mamba_decode(params, x, cache, *, cfg):
     d_in, H, P, N, conv_dim = _dims(cfg)
     xn = rms_norm(params["ln"], x[:, 0, :], eps=cfg.norm_eps)
     proj = xn @ params["in_proj"]
-    z, xs, B_, C_, dtr = _split_proj(proj, cfg)
+    z, xs, B_, C_, dtr = _split_proj(proj, d_in, N, H)
 
     conv_in = torch.cat([xs, B_, C_], -1)                            # (B, conv_dim)
     conv_w = params["conv"]

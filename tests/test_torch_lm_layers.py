@@ -279,3 +279,32 @@ def test_mamba_decode(dtype):
     _close(tn["conv"], jn["conv"], dtype)
     _close(tn["ssm"], jn["ssm"], dtype)
     assert str(tn["ssm"].dtype) == "torch.float32"
+
+
+def test_mamba_long_chunk_gradients_are_finite():
+    """A chunk of 128 tokens at A = -1: above the diagonal ``cum_q -
+    cum_k`` passes 88 and ``exp`` overflows float32, so the reference's
+    masked product has NaN gradients (0 x inf) for every leaf before the
+    SSD.  The port masks inside the ``exp``: the reference's output
+    (within the float32 bar), and every gradient finite and within 1e-5
+    of its largest of the reference's gradient at chunk 8, where nothing
+    overflows (the SSD is the same function at any chunk length)."""
+    jc, tc = _cfgs(family="ssm", ssm_state=8, ssm_heads=4, ssm_chunk=128)
+    jc8 = _cfgs(family="ssm", ssm_state=8, ssm_heads=4, ssm_chunk=8)[0]
+    p = _params(jm.init_mamba, jc)
+    x = _x((B, 128, D))
+    jp, jx = _jtree(p, "float32"), _j(x, "float32")
+    tp = {k: v.requires_grad_() for k, v in _ttree(p, "float32").items()}
+    out = tm.mamba_mixer(tp, _t(x, "float32"), cfg=tc)
+    _close(out.detach(), jm.mamba_mixer(jp, jx, cfg=jc), "float32")
+    grads = torch.autograd.grad(out.sum(), list(tp.values()))
+
+    def grad_of(cfg):
+        return jax.grad(lambda q: jnp.sum(jm.mamba_mixer(q, jx, cfg=cfg)))(jp)
+
+    assert not all(bool(jnp.isfinite(g).all()) for g in grad_of(jc).values())
+    want = grad_of(jc8)
+    for k, g in zip(tp, grads):
+        w = np.asarray(want[k])
+        assert bool(torch.isfinite(g).all()), k
+        assert float(np.abs(g.numpy() - w).max()) <= 1e-5 * np.abs(w).max(), k

@@ -13,7 +13,12 @@ the K/V of its rows; causal, sliding window, the blockwise flash form),
 cross attention (in ``ctx`` mode with the source's rows split over the
 lanes, and with 6 rows over 4 lanes projected whole on lane 0), the MLP
 split over its hidden dim, MoE over experts (with and without a shared expert), the
-vocab-split embedding and the vocab-parallel cross entropy.
+vocab-split embedding and the vocab-parallel cross entropy, and the
+Mamba2 mixer split by head (``heads`` mode: a lane's columns of the
+packed ``in_proj`` and ``conv`` with all of B and C, its rows of
+``out_proj``, ``ssm_norm``'s mean pooled over the lanes), forward and
+every leaf's gradient; with the heads not dividing over the lanes it
+runs whole on lane 0.
 
 Bar, float32: |split - whole| and |split - reference| at most 1e-6 x the
 largest |whole|; the embedding lookup (one lane's row plus zeros) bit for
@@ -30,11 +35,11 @@ import torch
 from test_torch_lm_layers import _cfgs, _j, _jtree, _params, _ttree, _x
 from test_torch_train_parity import few_threads  # noqa: F401 (autouse)
 
-from repro.models import layers as jl, moe as jmoe
+from repro.models import layers as jl, mamba2 as jm, moe as jmoe
 from repro.models.model import softmax_xent as jxent
 from repro_torch.distributed import partition, sharding as sh
 from repro_torch.launch import mesh as tmesh
-from repro_torch.models import layers as tl, moe as tmoe
+from repro_torch.models import layers as tl, mamba2 as tm, moe as tmoe
 from repro_torch.models.model import softmax_xent as txent
 
 REL = 1e-6
@@ -198,3 +203,112 @@ def test_vocab_parallel_cross_entropy(M, tied):
                       tied=tied)
     ref = jxent(jlog[:, :-1], jnp.asarray(toks[:, 1:]))
     _close(got.reshape(1), whole.reshape(1), jnp.reshape(ref, (1,)))
+
+
+def _mcfgs(**kw):
+    """``test_torch_lm_layers.py``'s Mamba2 config: d_in 64, 4 heads of
+    16, state 8, so ``in_proj`` is (32, 148): at M 2 and 4 its shards cut
+    inside the x columns, not at a head."""
+    return _cfgs(**{**dict(family="ssm", ssm_state=8, ssm_heads=4,
+                           ssm_chunk=4), **kw})
+
+
+def _mamba_grads(plan, share, x, r):
+    """The split mixer's output on ``x`` and each leaf's gradient of
+    ``sum(out * r)``, put together from its shards' gradients."""
+    out = plan._mamba(share, x)
+    inputs = plan.proxies.grad_inputs()
+    grads = torch.autograd.grad(torch.sum(out * r), inputs,
+                                allow_unused=True)
+    whole, at = {}, 0
+    block = plan.proxies.tree["stacks"]["s0"][0]["b0"]["mixer_ssm"]
+    for k, name in enumerate(block):
+        g = torch.zeros(plan.proxies.leaves[k].shape)
+        for _, sl in plan.proxies.sources[k]:
+            if grads[at] is not None:
+                g[sl] = grads[at]
+            at += 1
+        whole[name] = g
+    return out, whole
+
+
+def _whole_grads(p, x, r, cfg):
+    leaves = {k: torch.from_numpy(np.array(v)).requires_grad_()
+              for k, v in p.items()}
+    out = tm.mamba_mixer(leaves, x, cfg=cfg)
+    names = list(leaves)
+    grads = torch.autograd.grad(torch.sum(out * r),
+                                [leaves[k] for k in names])
+    return out, dict(zip(names, grads))
+
+
+@pytest.mark.parametrize("M", [2, 4])
+def test_mamba_split(M):
+    """Lane ``m``'s heads ``[mH/M, (m+1)H/M)``: the output within 1e-6 of
+    the whole mixer's largest value (and of the reference's), each leaf's
+    gradient within 1e-6 of the whole mixer's gradient's largest; no lane
+    gathers a whole ``in_proj`` or ``out_proj``."""
+    jc, tc = _mcfgs()
+    p = _params(jm.init_mamba, jc)
+    x = torch.from_numpy(_x((B, 16, jc.d_model)))
+    r = torch.from_numpy(_x((B, 16, jc.d_model), 8))
+    plan, share = _share(tc, "mixer_ssm", p, M, 16)
+    assert share.modes["mixer_ssm"] == "heads"
+    d_in, H, P, N, conv_dim = tm._dims(tc)
+    Hm = H // M
+    for t in share.trees:
+        m = t["mixer_ssm"]
+        assert tuple(m["in_proj"].shape) == (jc.d_model,
+                                            2 * Hm * P + 2 * N + Hm)
+        assert tuple(m["conv"].shape) == (tc.ssm_conv, Hm * P + 2 * N)
+        assert tuple(m["out_proj"].shape) == (Hm * P, jc.d_model)
+        assert tuple(m["ssm_norm"].shape) == (Hm * P,)
+        assert tuple(m["A_log"].shape) == (Hm,)
+    got, grads = _mamba_grads(plan, share, x, r)
+    whole, wgrads = _whole_grads(p, x, r, tc)
+    _close(got, whole, jm.mamba_mixer(_jtree(p, "float32"),
+                                      _j(x.numpy(), "float32"), cfg=jc))
+    for k, g in wgrads.items():
+        scale = float(g.abs().max())
+        err = float((grads[k] - g).abs().max())
+        assert err <= REL * scale, (k, err, scale)
+
+
+def test_mamba_split_falls_back_where_heads_do_not_divide():
+    """2 heads over 4 lanes: the mixer runs whole on lane 0 (its leaves
+    gathered whole there, none on the other lanes), bit for bit the
+    whole mixer."""
+    jc, tc = _mcfgs(ssm_heads=2)
+    p = _params(jm.init_mamba, jc)
+    x = torch.from_numpy(_x((B, 16, jc.d_model)))
+    plan, share = _share(tc, "mixer_ssm", p, 4, 16)
+    assert share.modes["mixer_ssm"] == "home"
+    assert [("mixer_ssm" in t) for t in share.trees] == [True] + [False] * 3
+    got = plan._mamba(share, x)
+    assert torch.equal(got, tm.mamba_mixer(_ttree(p, "float32"), x, cfg=tc))
+
+
+def test_mamba_split_norms_over_all_channels():
+    """``ssm_norm`` is one RMS norm over all ``d_in`` channels.  With the
+    second half of the heads' ``z`` and ``x`` columns scaled by 8, a lane
+    normalising its own channels alone is far from the whole mixer (more
+    than 1e-2 of its largest value); the split mixer is within 1e-6."""
+    jc, tc = _mcfgs()
+    p = _params(jm.init_mamba, jc)
+    d_in = tm._dims(tc)[0]
+    w = np.array(p["in_proj"])
+    for lo in (d_in // 2, d_in + d_in // 2):
+        w[:, lo:lo + d_in // 2] *= 8.0
+    p = {**p, "in_proj": w}
+    x = torch.from_numpy(_x((B, 16, jc.d_model)))
+    plan, share = _share(tc, "mixer_ssm", p, 2, 16)
+    whole = tm.mamba_mixer(_ttree(p, "float32"), x, cfg=tc)
+    _close(plan._mamba(share, x), whole)
+    alone = 0
+    for t in share.trees:
+        t = t["mixer_ssm"]
+        g = tm.mamba_gated(t, x, cfg=tc)
+        alone = alone + tl.rms_norm(t["ssm_norm"], g, eps=tc.norm_eps) \
+            @ t["out_proj"]
+    gap = float((alone - whole).detach().abs().max())
+    assert gap > 1e-2 * float(whole.abs().max()), gap

@@ -181,3 +181,26 @@ def test_shard_and_gather_are_device_put_and_back(monkeypatch):
     np.testing.assert_array_equal(
         sh.gather(sh.shard(x, mesh, sh.P("data", "model"))).numpy(),
         x.numpy())
+
+
+def test_gather_puts_several_ranges_side_by_side(monkeypatch):
+    """A region entry that is a tuple of slices (a Mamba2 lane's columns
+    of ``in_proj``: ranges that cut the shards anywhere, one shard serving
+    several) gives the ranges laid side by side, in ``dtype``, on the
+    lane's device; the plan reads each shard's parts where they lie."""
+    monkeypatch.setenv(tmesh.FORCE_LANES_ENV, "8")
+    mesh = tmesh.make_dev_mesh((4, 2), device="cpu")
+    x = torch.arange(16 * 14, dtype=torch.float32).reshape(16, 14) / 7
+    s = sh.shard(x, mesh, sh.P("data", "model"))
+    cols = ((2, 5), (6, 9), (10, 11))
+    region = (slice(0, 16), tuple(slice(*c) for c in cols))
+    got = sh.gather(s, lane=3, region=region, dtype=torch.bfloat16)
+    want = torch.cat([x[:, a:b] for a, b in cols], dim=1)
+    assert sh.region_shape(region) == (16, 7)
+    assert got.dtype == torch.bfloat16 and torch.equal(got,
+                                                       want.bfloat16())
+    plan = sh.gather_plan(s, region)
+    # columns 6:9 cross the model shards' boundary at 7: two parts
+    assert len(plan) == 4 * 4 and len({i for i, _, _ in plan}) == 8
+    for i, at, part in plan:
+        assert torch.equal(got[at], s.shards[i][part].bfloat16())
