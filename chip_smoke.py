@@ -85,7 +85,7 @@ words, 5 components, target cardinality 5):
   reference's smoke weights against ``lm_train_smoke.npz``
   (``lm_train_record``); one qwen2-0.5b train step at full width in
   float32, the card against the CPU (``lm_train_full_width``); and
-  ``launch/train.py --arch qwen2-0.5b`` at full width, B 8, S 128, 100
+  ``launch/train.py --arch qwen2-0.5b`` at full width, B 8, S 128, 60
   steps, with ms a step, tokens/s, peak memory and ``train_mfu`` beside
   the card's name and power limit, a profile, a batch fitted in 10
   steps, then a child launcher killed by SIGTERM and resumed against two
@@ -98,7 +98,10 @@ words, 5 components, target cardinality 5):
   --mesh 2x2`` at full width, 4 steps, its Mamba2 blocks split by head
   over ``model``, against ``--mesh 1x1 --microbatches 2`` and ``--mesh
   2x1``, each lane's gathered bytes for one Mamba2 period beside the
-  whole block's (``lm_train_mesh_ssm``); the dense pooled statistics on a (2, 2)
+  whole block's (``lm_train_mesh_ssm``); the partitioned serve steps
+  (``make_serve_step(model, mesh)``, ``make_prefill_step(model, mesh)``)
+  of qwen2-0.5b on ``2x2``, ``1x4`` and ``2x1`` and mamba2-130m on
+  ``2x2`` against one device (``lm_serve_mesh``); the dense pooled statistics on a (2, 2)
   lane mesh are held to a 2-lane data mesh bit for bit in
   ``baselines``.  The LM paths have no kernel of their own: the
   reference computes them with plain ``@`` and so does the port.
@@ -3532,13 +3535,14 @@ def _lm_train_small_vocab(vocab=512, steps=60):
 def phase_lm_train():
     """``launch/train.py --arch qwen2-0.5b`` at its published width with
     its own dtypes (float32 parameters, bfloat16 compute), ``--batch 8
-    --seq 128 --steps 100 --ckpt-every 50``: every loss finite; the means
+    --seq 128 --steps 60 --ckpt-every 30`` (100 and 50 before the serve
+    mesh phase took their time): every loss finite; the means
     of the first and last 10 losses, reported and not gated (at the full
     151,936-word vocabulary the loss stays near ln V in 100 steps); the
     first 60 steps with the vocabulary cut to 512 words, whose loss must
     fall (`_lm_train_small_vocab`); 10 steps on the run's last batch,
     whose loss must fall by more than 1 (the model fits a batch); the
-    step's ms (median of steps 10-99 of the trainer's own timing, each
+    step's ms (median of steps 10-59 of the trainer's own timing, each
     ending in a synchronize), tokens/s, peak device memory and
     ``train_mfu`` (``analysis.train_model_flops`` over the median step,
     over 989 TFLOP/s) beside the card's name and power limit; a profile
@@ -3556,8 +3560,8 @@ def phase_lm_train():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        res = launcher.main([*TRAIN_ARGS, "--steps", "100", "--ckpt-every",
-                             "50", "--ckpt-dir", os.path.join(root, "run")])
+        res = launcher.main([*TRAIN_ARGS, "--steps", "60", "--ckpt-every",
+                             "30", "--ckpt-dir", os.path.join(root, "run")])
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         trainer = res["trainer"]
@@ -3567,7 +3571,7 @@ def phase_lm_train():
         p90_s = float(np.percentile(times[10:], 90))
         flops = analysis.train_model_flops(cfg, 8, 128)
         step, state = trainer.train_step, res["state"]
-        batch = trainer.make_batch(trainer.pipeline.batch_at(99))
+        batch = trainer.make_batch(trainer.pipeline.batch_at(59))
         prof = _lm_train_profile(step.model, step, state, batch)
         fit = _lm_train_one_batch(step, state, batch)
         del res, trainer, step, state, batch
@@ -3586,13 +3590,13 @@ def phase_lm_train():
                    card=smi)
         emit("lm_train", **row)
         print(f"lm_train qwen2-0.5b B 8 S 128: {row['step_ms_median']:.1f} "
-              f"ms a step (median, steps 10-99), {row['tokens_per_s']:.0f} "
+              f"ms a step (median, steps 10-59), {row['tokens_per_s']:.0f} "
               f"tokens/s, train_mfu {row['train_mfu']:.4f}, max memory "
               f"{peak / 2**30:.2f} GiB, loss {row['loss_first10']:.3f} -> "
               f"{row['loss_last10']:.3f} (vocabulary 512: "
               f"{witness['loss_first10']:.3f} -> "
               f"{witness['loss_last10']:.3f}) on {smi}", flush=True)
-        check(len(loss) == 100 and np.isfinite(loss).all(),
+        check(len(loss) == 60 and np.isfinite(loss).all(),
               "lm_train: a loss is not finite")
         check(witness["finite"]
               and witness["loss_last10"] < witness["loss_first10"],
@@ -3601,8 +3605,8 @@ def phase_lm_train():
         check(np.isfinite(fit).all() and fit[-1] < fit[0] - 1.0,
               f"lm_train: {len(fit)} steps on one batch did not fit it: "
               f"{fit}")
-        check(kinds[-1] == ("checkpoint", 100)
-              and ("checkpoint", 50) in kinds,
+        check(kinds[-1] == ("checkpoint", 60)
+              and ("checkpoint", 30) in kinds,
               f"lm_train: checkpoints {kinds}")
         shutil.rmtree(os.path.join(root, "run"))
         kr = _lm_train_kill_resume(root)
@@ -3988,6 +3992,229 @@ def phase_lm_train_mesh_ssm(steps=4):
           f"lm_train_mesh_ssm: 2x1 differs from microbatches 2: {r21}")
 
 
+SERVE_MESH_BAR = 2e-3            # lm_full_width's decode-vs-forward bar
+# bfloat16 compute and cache: one bfloat16 step of the largest logit is
+# 3.9e-3 of it, and the meshes' sums in another order read 1.41e-2
+# (qwen2-0.5b) and 2.19e-2 (mamba2-130m) of it; a wrong lane gives O(1)
+SERVE_MESH_BF16_BAR = 5e-2
+SERVE_ROWS, SERVE_PROMPT, SERVE_GEN, SERVE_CACHE = 8, 16, 8, 64
+
+
+def _serve_run(model, feed, mesh=None, rows=slice(None)):
+    """``SERVE_PROMPT + SERVE_GEN`` decode steps of ``model`` (one device,
+    or partitioned over ``mesh``) on rows ``rows``: step ``t`` takes
+    ``feed[t]``, or, past the end of ``feed``, the step's own greedy
+    token.  Returns every step's logits (float32, on the CPU), the tokens
+    fed, the greedy tokens from the prompt's last step on, the ms of each
+    step after the prompt, the cache, and the prefill step's tokens on
+    the prompt."""
+    import torch
+
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    prompt = {"tokens": torch.cat(feed[:SERVE_PROMPT], 1)[rows].cuda()}
+    B = prompt["tokens"].shape[0]
+    # bfloat16 compute keeps the default bfloat16 cache; float32 compute
+    # a float32 one, whose rounding would otherwise turn a float32
+    # difference into a bfloat16 bit of a cached key
+    cache = model.init_cache(B, SERVE_CACHE, dtype=model.cfg.compute_dtype)
+    pre = make_prefill_step(model, mesh)(prompt)
+    serve = make_serve_step(model, mesh)
+    logits, fed, greedy, ms = [], [], [], []
+    nxt = None
+    for t in range(SERVE_PROMPT + SERVE_GEN):
+        tok = feed[t][rows] if t < len(feed) else nxt
+        fed.append(tok)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mesh is None:
+            lg, cache = model.decode_step(cache, tok.cuda())
+            nxt = torch.argmax(lg, -1)[:, None]
+        else:
+            cache, nxt, lg = serve(cache, tok.cuda(), logits=True)
+        nxt = nxt.cpu()
+        if t >= SERVE_PROMPT:
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if t >= SERVE_PROMPT - 1:
+            greedy.append(nxt)
+        logits.append(lg.float().cpu())
+    return dict(logits=torch.stack(logits, 1), fed=fed,
+                greedy=torch.cat(greedy, 1), ms=ms, cache=cache,
+                prefill=pre.cpu())
+
+
+def _cache_lane_bytes(cache, n):
+    """Bytes each of ``n`` lanes holds at rest of a sharded cache."""
+    from repro_torch.distributed.sharding import Sharded
+
+    out = [0] * n
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, list):
+            for v in t:
+                walk(v)
+        elif isinstance(t, Sharded):
+            for i in range(n):
+                out[i] += t.lane_bytes(i)
+    walk(cache)
+    return out
+
+
+def phase_lm_serve_mesh():
+    """The partitioned serve steps (``make_serve_step(model, mesh)``,
+    ``make_prefill_step(model, mesh)``) at full width on lanes forced onto
+    the card: qwen2-0.5b with its default dtypes (float32 weights,
+    bfloat16 compute and cache), seed-0 weights, 8 rows, a cache of 64
+    positions, a prompt of 16 fed through the decode step, then 8 greedy
+    steps, on one device and on ``2x2`` (heads form: 7 query heads and 1
+    KV head a lane), ``1x4`` (sequence form: 2 KV heads do not divide 4,
+    16 positions a lane) and ``2x1``; the same in float32 (TF32 off) on
+    ``2x2`` and ``1x4``; mamba2-130m in both dtypes on ``2x2`` (12 heads
+    a lane, the conv state's regions across shards).  The meshes take one
+    device's tokens (teacher-forced).  Logits within ``bar`` x max
+    |logit| of one device's: 2e-3 in float32 (``lm_full_width``'s bar),
+    5e-2 in bfloat16 (`SERVE_MESH_BF16_BAR`).  Greedy tokens: at every
+    step the mesh's token is one device's top token or scores within 2 x
+    bar x max |logit| of it on one device; they are equal wherever one
+    device's top-2 gap exceeds that, which must hold for most steps.  The
+    prefill's
+    tokens equal; each lane's cache bytes, counted from its
+    shards, equal the dry-run's count for that mesh (the default dtypes:
+    the float32 runs keep a float32 cache); ``2x1`` equal bit
+    for bit to one device on each half of the rows.  Reports ms a decode
+    step and tokens/s (not gated: host-bound)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.models import build_model
+
+    smi = nvidia_smi()
+    t_phase = time.perf_counter()
+    rows = []
+    prev = torch.backends.cuda.matmul.allow_tf32
+    for arch, dtypes, shapes in (
+            ("qwen2-0.5b", None, ((2, 2), (1, 4), (2, 1))),
+            ("qwen2-0.5b", LM_F32, ((2, 2), (1, 4))),
+            ("mamba2-130m", None, ((2, 2),)),
+            ("mamba2-130m", LM_F32, ((2, 2),))):
+        cfg = get_config(arch)
+        if dtypes is not None:
+            cfg = cfg.scaled(dtypes=dtypes)
+        # float32 runs with TF32 off, as lm_full_width holds its bar
+        torch.backends.cuda.matmul.allow_tf32 = prev and dtypes is None
+        rng = np.random.default_rng(0)
+        prompt = torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (SERVE_ROWS, SERVE_PROMPT)))
+        feed = [prompt[:, t:t + 1] for t in range(SERVE_PROMPT)]
+
+        def build():
+            return build_model(cfg, device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+
+        # one device generates; its tokens are every other run's feed
+        one = _serve_run(build(), feed)
+        feed = one["fed"]
+        _lm_free()
+        scale = float(one["logits"].abs().max())
+        # one device's logits at the steps that chose the greedy tokens
+        gen = one["logits"][:, SERVE_PROMPT - 1:]
+        top2 = torch.topk(gen, 2, dim=-1).values
+        gap = top2[..., 0] - top2[..., 1]
+        bar = SERVE_MESH_BAR if dtypes is not None else SERVE_MESH_BF16_BAR
+        base = dict(arch=arch, dtypes=list(cfg.dtypes), rows=SERVE_ROWS,
+                    prompt=SERVE_PROMPT, gen=SERVE_GEN, cache=SERVE_CACHE,
+                    card=smi, max_abs_logit=scale, logits_bar=bar,
+                    float32=dtypes is not None)
+        rows.append(dict(base, mesh="1x1", ms_per_step=float(
+            np.mean(one["ms"])), tokens_per_s=SERVE_ROWS * 1e3 / float(
+            np.mean(one["ms"]))))
+        emit("lm_serve_mesh", **rows[-1])
+        for shape in shapes:
+            name = "x".join(map(str, shape))
+            with _forced_lanes(4):
+                mesh = make_dev_mesh(shape, ("data", "model"))
+                got = _serve_run(build(), feed, mesh)
+            diff = (got["logits"] - one["logits"]).abs()
+            rel = float(diff.max()) / scale
+            same = got["greedy"] == one["greedy"]
+            clear = gap > 2 * bar * scale
+            # the mesh's token as one device scores it, below one device's top
+            short = top2[..., 0] - torch.gather(gen, -1, got["greedy"][
+                ..., None])[..., 0]
+            dry = dryrun.plan_cell(
+                cfg, ShapeSpec("lm_serve_mesh", SERVE_CACHE, SERVE_ROWS,
+                               "decode"),
+                make_dev_mesh(shape, ("data", "model"), device="meta"),
+                prove=False)["memory"]["cache_bytes"]
+            lanes = _cache_lane_bytes(got["cache"], mesh.size)
+            k0 = got["cache"]["stacks"]["s0"][0]["b0"]["mixer"]
+            row = dict(base, mesh=name, logits_rel=rel,
+                       tokens_equal=bool(torch.equal(got["greedy"],
+                                                     one["greedy"])),
+                       tokens_equal_where_clear=bool((same | ~clear).all()),
+                       clear_steps=int(clear.sum()),
+                       steps=int(same.numel()),
+                       token_shortfall_max=float(short.max()),
+                       prefill_equal=bool(torch.equal(got["prefill"],
+                                                      one["prefill"])),
+                       cache_lane_bytes=lanes, dry_run_cache_bytes=dry,
+                       ms_per_step=float(np.mean(got["ms"])),
+                       tokens_per_s=SERVE_ROWS * 1e3 / float(
+                           np.mean(got["ms"])))
+            if "k" in k0:
+                row["positions_a_lane"] = int(k0["k"].shards[0].shape[1])
+            if shape == (2, 1):
+                halves = [_serve_run(build(), feed, rows=slice(a, b))
+                          for a, b in ((0, SERVE_ROWS // 2),
+                                       (SERVE_ROWS // 2, SERVE_ROWS))]
+                row["bit_equal_to_halves"] = bool(
+                    torch.equal(got["logits"], torch.cat(
+                        [h["logits"] for h in halves]))
+                    and torch.equal(got["prefill"], torch.cat(
+                        [h["prefill"] for h in halves])))
+            rows.append(row)
+            emit("lm_serve_mesh", **row)
+            del got
+            _lm_free()
+    torch.backends.cuda.matmul.allow_tf32 = prev
+    seconds = time.perf_counter() - t_phase
+    emit("lm_serve_mesh_summary", seconds=seconds, card=smi)
+    for r in rows:
+        if r["mesh"] == "1x1":
+            continue
+        what = f"lm_serve_mesh: {r['arch']} {r['dtypes']} {r['mesh']}"
+        check(r["logits_rel"] < r["logits_bar"],
+              f"{what} logits {r['logits_rel']} of max from one device's "
+              f"(bar {r['logits_bar']})")
+        check(r["token_shortfall_max"] <= 2 * r["logits_bar"]
+              * r["max_abs_logit"],
+              f"{what} a greedy token scores {r['token_shortfall_max']} "
+              f"below one device's top")
+        check(r["tokens_equal_where_clear"]
+              and 2 * r["clear_steps"] > r["steps"],
+              f"{what} greedy tokens: {r['clear_steps']} of {r['steps']} "
+              f"steps clear of the bar, equal there: "
+              f"{r['tokens_equal_where_clear']}")
+        check(r["prefill_equal"], f"{what} prefill tokens differ")
+        # the dry-run counts the default bfloat16 cache
+        check(r["float32"] or all(b == r["dry_run_cache_bytes"]
+                                       for b in r["cache_lane_bytes"]),
+              f"{what} cache bytes a lane {r['cache_lane_bytes']} != the "
+              f"dry-run's {r['dry_run_cache_bytes']}")
+        if r["mesh"] == "1x4":
+            check(r["positions_a_lane"] == SERVE_CACHE // 4,
+                  f"{what} a lane holds {r['positions_a_lane']} positions")
+        if r["mesh"] == "2x1":
+            check(r["bit_equal_to_halves"],
+                  f"{what} != one device on each half of the rows")
+
+
 def main():
     import torch
 
@@ -4083,6 +4310,8 @@ def main():
     # qwen2-0.5b, then mamba2-130m with its blocks split by head
     phase_lm_train_mesh()
     phase_lm_train_mesh_ssm()
+    # the partitioned serve steps on 2x2, 1x4 and 2x1 lane meshes
+    phase_lm_serve_mesh()
     kernels = [{
         "name": "bcd_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bcd_fused.cu",

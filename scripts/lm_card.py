@@ -5,8 +5,8 @@
 
 PHASE is any of ``lm_record``, ``lm_full_width``, ``lm_serve``,
 ``lm_train_record``, ``lm_train_full_width``, ``lm_train``,
-``lm_train_mesh`` and ``lm_train_mesh_ssm`` (default: all, in that
-order).  Each prints the JSON
+``lm_train_mesh``, ``lm_train_mesh_ssm`` and ``lm_serve_mesh`` (default:
+all, in that order).  Each prints the JSON
 lines ``chip_smoke.py`` prints
 for it and fails as it does; the SPCA phases and the kernel table are not
 run, so no kernel is built.  Then the card's name and power limit.
@@ -18,7 +18,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHASES = ("lm_record", "lm_full_width", "lm_serve", "lm_train_record",
           "lm_train_full_width", "lm_train", "lm_train_mesh",
-          "lm_train_mesh_ssm")
+          "lm_train_mesh_ssm", "lm_serve_mesh")
 
 
 def main(argv):

@@ -1,6 +1,7 @@
-"""The partition of the sharded train step: what each lane of a (data,
-model) `LaneMesh` computes, laid out as the reference's parameter specs
-and ``constrain`` hints lay out XLA's partitioned step.
+"""The partition of the sharded train and serve steps: what each lane of
+a (data, model) `LaneMesh` computes, laid out as the reference's
+parameter and cache specs and ``constrain`` hints lay out XLA's
+partitioned steps.
 
 **Weights, a period at a time over ``data``** (ZeRO-3, ``fsdp`` ->
 ``data``).  The step hands the model's leaves in as `Proxies`: each
@@ -57,6 +58,39 @@ product runs whole on home.  With ``M == 1`` every product
 is the one-device model's own code, so a ``(D, 1)`` step equals the
 one-device step with ``microbatches=D`` bit for bit.
 
+**Serving** (`ServePlan`, `GroupPlan.layout`; under ``no_grad``, so
+`_Gather` builds no graph and no gradient shard is made).  The
+parameters at rest are the train step's shards (`Resting`); the decode
+cache is sharded by the reference's ``CACHE_RULES`` (`launch.inputs.
+cache_shardings`: rows over ``data``, KV heads over ``model``, the
+sequence over ``model`` where the KV heads do not divide it, and over
+``data`` at ``B == 1``).  Decode runs the data groups in lockstep, block
+by block, each group's rows on its home throughout; the groups meet only
+where a MoE routing group spans them, to assign its slots over the
+pooled group (`ServePlan._moe`), and to put the tokens together:
+
+* attention, ``heads`` form: each lane projects its heads and, where it
+  holds its heads' whole cache, runs `attention` on its shard (written in
+  place) and returns its partial output; the *sequence* form (the heads
+  do not divide, or ``B == 1``): the query lane (home, or each lane's
+  heads) projects q, K and V, the new K/V go to the lane owning ``pos``,
+  every lane holding part of the positions returns its float32
+  ``(max, sum of exp, acc)`` (`layers.decode_partial`; a lane with no
+  valid key gives ``(-inf, 0, 0)``), home adds them by the log-sum-exp
+  rule (`layers.combine_partials`), and the query lane applies ``wo``;
+  cross attention by heads on the static encoder K/V;
+* Mamba2 by head: a lane gathers its region of the conv state (its
+  heads' ``x`` channels and all of B and C, across the shards) and its
+  heads' SSM state, two rounds as in training, and each channel's new
+  state is written back where it lies at rest (B and C's from home);
+* the greedy head by vocabulary: each lane returns its slice's largest
+  logit and its first index, home keeps the strictly larger lane by lane
+  (``argmax``'s first-maximum rule).
+Prefill runs each group's rows through the partitioned forward
+(`GroupPlan.layout`), then the split greedy head on the last position.
+With ``M == 1`` a group computes exactly what one device computes on its
+rows (MoE routing aside).
+
 **Lanes and streams.**  Each lane's share is queued on its stream
 (`lane_context`, which orders it after home's work); home waits on a
 lane's stream before it reads the lane's output, and every tensor read
@@ -79,7 +113,8 @@ import torch
 from . import sharding
 from ..launch.mesh import lane_context
 from ..models.layers import (
-    F32, attention, embed, mlp, project_kv, rms_norm, unembed,
+    F32, attention, combine_partials, decode_partial, decode_qkv, embed, mlp,
+    project_kv, rms_norm, unembed,
 )
 from ..models.model import _STACKED, softmax_xent
 from ..models import mamba2, moe as moe_lib
@@ -303,6 +338,9 @@ class GroupPlan:
         return out
 
     def _block_modes(self, block, seq) -> dict:
+        """Each product's mode (in decode, with ``seq`` 1, attention that
+        does not split by heads is ``home``: `attention_decode`'s sequence
+        form)."""
         cfg, M = self.cfg, self.M
         modes = {}
         for name, sub in block.items():
@@ -358,12 +396,13 @@ class GroupPlan:
             else:
                 tree[name] = self._tree(sub, m, mode == "ctx", True)
 
-    def _period(self, ptree, seq):
+    def _period(self, ptree, seq, *, shares=False):
         """A period's leaves gathered on the lanes that use them: the
-        one-device tree when ``M == 1``, else a `BlockShare` a block
-        (``seq``: the stack's query length, which picks ``ctx`` mode)."""
+        one-device tree when ``M == 1`` (unless ``shares``), else a
+        `BlockShare` a block (``seq``: the stack's query length, which
+        picks ``ctx`` mode)."""
         before = list(self.gathered)
-        if self.M == 1:
+        if self.M == 1 and not shares:
             out = self._tree(ptree, 0, True, True)
         else:
             out = {b: self._block_share(block, seq)
@@ -385,8 +424,8 @@ class GroupPlan:
 
     def layout(self, model):
         """A pass's `models.model.Layout` on the group's lanes (the
-        ``layout`` of `LM.loss` / `EncDec.loss`): its top-level leaves
-        gathered once."""
+        ``layout`` of `LM.loss` / `EncDec.loss`, and of the partitioned
+        prefill's `LM._hidden`): its top-level leaves gathered once."""
         return _Layout(self)
 
     # -- lanes ----------------------------------------------------------
@@ -404,26 +443,28 @@ class GroupPlan:
             self.mesh.lanes[i].stream.wait_stream(self.home.stream)
         entry.wait_stream(self.home.stream)
 
-    def run(self, fn, *shared) -> list:
-        """``fn(m, *shared)`` on every lane ``m`` of the group, queued on
-        its stream; each result (a tensor or a tuple of them) brought back
-        to home."""
+    def run(self, fn, *shared, lanes=None) -> list:
+        """``fn(m, *shared)`` on every lane ``m`` of the group (or of
+        ``lanes``, mesh lane indices, ``m`` their position), queued on its
+        stream; each result (a tensor or a tuple of them) brought back to
+        home."""
         home_stream = (torch.cuda.current_stream(self.home.device)
                        if self.home.stream is not None else None)
         outs = []
-        for m, i in enumerate(self.lanes):
+        for m, i in enumerate(self.lanes if lanes is None else lanes):
             lane = self.mesh.lanes[i]
-            outs.append(self._lane_run(m, fn, shared))
+            outs.append(self._lane_run(m, fn, shared, i))
             if lane.stream is not None and lane.stream != home_stream:
                 home_stream.wait_stream(lane.stream)
         return [_back(o, self.home, home_stream) for o in outs]
 
-    def _lane_run(self, m, fn, shared):
-        """Lane ``m``'s share of `run`, on its stream."""
-        lane = self.mesh.lanes[self.lanes[m]]
+    def _lane_run(self, m, fn, shared, i):
+        """The share of `run` at position ``m``, on mesh lane ``i``'s
+        stream."""
+        lane = self.mesh.lanes[i]
         with lane_context(lane):
             out = fn(m, *(_share(t, lane) for t in shared))
-        if m:
+        if i != self.lanes[0]:
             self.moved += sum(_nbytes(t) for t in (*shared, out))
         return out
 
@@ -540,16 +581,186 @@ class GroupPlan:
         return self.sum(self.run(
             lambda m, x: mlp(trees[m], x, cfg=self.cfg), x))
 
-    def _moe(self, share, x):
+    def _moe(self, share, x, group_size=None, assigned=None):
+        """MoE over experts; ``group_size`` and ``assigned`` as in
+        `moe.moe` (the partitioned decode's routing over the whole
+        batch)."""
         cfg = self.cfg
         trees = [t.get("ffn_moe") for t in share.trees]
+        kw = dict(cfg=cfg, group_size=group_size)
         if share.modes["ffn_moe"] == "home":
-            return moe_lib.moe(trees[0], x, cfg=cfg)
+            return moe_lib.moe(trees[0], x, assigned=assigned, **kw)
         Em = cfg.n_experts // self.M
-        outs = self.run(lambda m, x: moe_lib.moe(
-            trees[m], x, cfg=cfg, experts=(m * Em, (m + 1) * Em),
-            with_aux=m == 0), x)
+        outs = self.run(lambda m, x, a: moe_lib.moe(
+            trees[m], x, experts=(m * Em, (m + 1) * Em), with_aux=m == 0,
+            assigned=a, **kw), x, assigned)
         return self.sum([o for o, _ in outs]), outs[0][1]
+
+    def route(self, share, x, group_size):
+        """Each of ``x``'s tokens' experts (`moe.route`), on home."""
+        tree = share.trees[0]["ffn_moe"]
+        return moe_lib.route(tree, x, cfg=self.cfg, group_size=group_size)
+
+    # -- decode ---------------------------------------------------------
+    def _cache_view(self, s, lane, region):
+        """Lane ``lane``'s shard of cache leaf ``s`` cut to ``region``
+        (slices of the whole leaf, which the shard must hold): a view, so
+        a write to it writes the shard."""
+        own = sharding.shard_slices(s.shape, s.mesh, s.spec, lane)
+        if any(r.start < o.start or r.stop > o.stop
+               for r, o in zip(region, own)):
+            raise ValueError(f"lane {lane} holds {own} of {s}, not {region}")
+        return s.shards[lane][sharding.within(region, own)]
+
+    def attention_decode(self, share, name, x, positions, cache, rows, *,
+                         window):
+        """One decode step of self attention ``name`` on the group's rows
+        ``rows`` of the sharded cache ``cache`` (``k``, ``v``: `Sharded`
+        (B, S, K, hd); ``pos``).  Each query lane (every lane's heads in
+        ``heads`` mode, home's all heads otherwise) finds the lanes that
+        hold its heads' cache: where that is itself, whole over the
+        positions, it runs `attention` on its shard (written in place);
+        else the new K/V go to the lane owning ``pos`` (and its replicas),
+        each holder returns its `decode_partial`, home adds them by the
+        log-sum-exp rule, and the query lane applies its rows of ``wo``.
+        The query lanes' partial outputs are added on home."""
+        cfg = self.cfg
+        trees = [t.get(name) for t in share.trees]
+        ks, vs, pos = cache["k"], cache["v"], cache["pos"]
+        B, S, K, hd = ks.shape
+        r = slice(*rows)
+        heads = share.modes[name] == "heads"
+        qlanes = self.lanes if heads else self.lanes[:1]
+        Kq = K // len(qlanes)
+        hk = (cfg.n_heads // len(qlanes), Kq)
+        holders = []
+        for m, lane in enumerate(qlanes):
+            region = (r, slice(0, S), slice(m * Kq, (m + 1) * Kq),
+                      slice(0, hd))
+            src = sharding.gather_sources(ks, region)
+            if any((x.start, x.stop) != (y.start, y.stop)
+                   for _, sl in src for j, (x, y) in enumerate(
+                       zip(sl, region)) if j != 1):
+                raise ValueError(f"{ks}: a lane holds part of the rows or "
+                                 "heads of a query lane's cache")
+            holders.append([(i, (sl[1].start, sl[1].stop)) for i, sl in src])
+        if all(h == [(lane, (0, S))] for h, lane in zip(holders, qlanes)):
+            def local(m, x, pos_t):
+                lane = qlanes[m]
+                region = (r, slice(0, S), slice(m * Kq, (m + 1) * Kq),
+                          slice(0, hd))
+                c = {"k": self._cache_view(ks, lane, region),
+                     "v": self._cache_view(vs, lane, region), "pos": pos}
+                return attention(trees[m], x, cfg=cfg, positions=pos_t,
+                                 window=window, cache=c,
+                                 heads=hk if heads else None)[0]
+            outs = self.run(local, x, positions, lanes=qlanes)
+            return outs[0] if len(outs) == 1 else self.sum(outs)
+        qkv = self.run(lambda m, x, pos_t: decode_qkv(
+            trees[m], x, cfg=cfg, positions=pos_t,
+            heads=hk if heads else None), x, positions, lanes=qlanes)
+        combined = []
+        for m, ((q, k, v), hold) in enumerate(zip(qkv, holders)):
+            kh = slice(m * Kq, (m + 1) * Kq)
+            at = (r, slice(pos, pos + 1), kh, slice(0, hd))
+            sharding.scatter(ks, at, k)
+            sharding.scatter(vs, at, v)
+
+            def part(j, q, hold=hold, kh=kh):
+                lane, (s0, s1) = hold[j]
+                region = (r, slice(s0, s1), kh, slice(0, hd))
+                return decode_partial(
+                    q, self._cache_view(ks, lane, region),
+                    self._cache_view(vs, lane, region), s0=s0, pos=pos,
+                    window=window)
+            parts = self.run(part, q, lanes=[i for i, _ in hold])
+            combined.append(combine_partials(parts, v.dtype))
+        outs = [self.run(lambda _, o, m=m: o.reshape(
+            o.shape[0], o.shape[1], -1) @ trees[m]["wo"], o,
+            lanes=[lane])[0] for m, (lane, o) in enumerate(zip(qlanes,
+                                                            combined))]
+        return outs[0] if len(outs) == 1 else self.sum(outs)
+
+    def cross_decode(self, share, x, positions, cache, rows):
+        """Cross attention on the static encoder K/V of the group's rows
+        (``cache``: `Sharded` ``k``, ``v``, (B, S_enc, K, hd)), by heads
+        where they split, else whole on home."""
+        cfg = self.cfg
+        trees = [t.get("cross") for t in share.trees]
+        ks, vs = cache["k"], cache["v"]
+        B, S, K, hd = ks.shape
+        heads = share.modes["cross"] == "heads"
+        qlanes = self.lanes if heads else self.lanes[:1]
+        Kq = K // len(qlanes)
+
+        def lane_cross(m, x, pos_t):
+            region = (slice(*rows), slice(0, S),
+                      slice(m * Kq, (m + 1) * Kq), slice(0, hd))
+            kv = {"k": self._cache_view(ks, qlanes[m], region),
+                  "v": self._cache_view(vs, qlanes[m], region)}
+            return attention(trees[m], x, cfg=cfg, positions=pos_t,
+                             causal=False, static_kv=kv,
+                             heads=(cfg.n_heads // len(qlanes), Kq)
+                             if heads else None)[0]
+        outs = self.run(lane_cross, x, positions, lanes=qlanes)
+        return outs[0] if len(outs) == 1 else self.sum(outs)
+
+    def mamba_decode(self, share, x, cache, rows):
+        """One decode step of the Mamba2 mixer on the group's rows of the
+        sharded ``conv`` (B, W-1, conv_dim) and ``ssm`` (B, H, N, P)
+        states.  In ``heads`` mode each lane gathers its region of the
+        conv state (its heads' ``x`` channels and all of B and C, across
+        whatever shards hold them) and its heads' SSM state, and the two
+        rounds of `_mamba` (sums of squares, then ``ssm_norm`` and
+        ``out_proj``) follow; else the mixer runs whole on home.  The new
+        states are written back to every lane holding them: each channel's
+        from the lane that computed it (B and C's from home)."""
+        cfg = self.cfg
+        trees = [t.get("mixer_ssm") for t in share.trees]
+        conv, ssm = cache["conv"], cache["ssm"]
+        d_in, H, P, N, conv_dim = mamba2._dims(cfg)
+        r, W = slice(*rows), conv.shape[1]
+        if share.modes["mixer_ssm"] == "home":
+            c = {"conv": sharding.gather(conv, lane=self.lanes[0], region=(
+                r, slice(0, W), slice(0, conv_dim))),
+                 "ssm": sharding.gather(ssm, lane=self.lanes[0], region=(
+                     r, slice(0, H), slice(0, N), slice(0, P)))}
+            out, nc = mamba2.mamba_decode(trees[0], x, c, cfg=cfg)
+            _widen(conv, nc["conv"].dtype)
+            sharding.scatter(conv, (r, slice(0, W), slice(0, conv_dim)),
+                             nc["conv"])
+            sharding.scatter(ssm, (r, slice(0, H), slice(0, N),
+                                   slice(0, P)), nc["ssm"])
+            return out
+        Hm = H // self.M
+        gated = [None] * self.M
+
+        def lane_sumsq(m, x):
+            ch = (slice(m * Hm * P, (m + 1) * Hm * P), slice(d_in, conv_dim))
+            lane = self.lanes[m]
+            cw = sharding.gather(conv, lane=lane,
+                                 region=(r, slice(0, W), ch))
+            st = sharding.gather(ssm, lane=lane, region=(
+                r, slice(m * Hm, (m + 1) * Hm), slice(0, N), slice(0, P)))
+            gated[m], new_conv, new_ssm = mamba2.mamba_decode_gated(
+                trees[m], x, cw, st, cfg=cfg)
+            return mamba2.gated_sumsq(gated[m]), new_conv, new_ssm
+
+        outs = self.run(lane_sumsq, x)
+        ss = self.sum([o[0] for o in outs])
+        inv = torch.rsqrt(ss / d_in + cfg.norm_eps)
+        out = self.sum(self.run(lambda m, inv: mamba2.mamba_project(
+            trees[m], gated[m], inv), inv))
+        gated.clear()
+        _widen(conv, outs[0][1].dtype)
+        for m, (_, new_conv, new_ssm) in enumerate(outs):
+            sharding.scatter(conv, (r, slice(0, W), slice(
+                m * Hm * P, (m + 1) * Hm * P)), new_conv[..., :Hm * P])
+            sharding.scatter(ssm, (r, slice(m * Hm, (m + 1) * Hm),
+                                   slice(0, N), slice(0, P)), new_ssm)
+        sharding.scatter(conv, (r, slice(0, W), slice(d_in, conv_dim)),
+                         outs[0][1][..., Hm * P:])
+        return out[:, None, :]
 
     # -- embedding and loss ---------------------------------------------
     def embed(self, top, tokens):
@@ -609,6 +820,236 @@ class GroupPlan:
         return torch.mean(torch.log(se) + mx - ll)
 
 
+    def _head_name(self):
+        cfg = self.cfg
+        tied = cfg.tie_embeddings and not cfg.is_encoder_decoder
+        return ("embed" if tied else "lm_head"), tied
+
+    def logits(self, top, xf):
+        """The head's logits of ``xf`` on home, put together from the
+        lanes' vocabulary slices where the head splits (for checking a
+        step: the serve steps return `greedy`'s tokens)."""
+        head, tied = self._head_name()
+        if not self._vocab_split(head):
+            return unembed(top[0][head], xf, self.cfg, tied=tied)
+        return torch.cat(self.run(lambda m, xf: unembed(
+            top[m][head], xf, self.cfg, tied=tied), xf), dim=-1)
+
+    def greedy(self, top, xf):
+        """The first index of the largest logit of each row of ``xf``
+        (``argmax``'s rule).  Where the head splits by vocabulary each
+        lane returns its slice's largest logit and the first global index
+        of it; home keeps, lane by lane, a strictly larger value, so a tie
+        goes to the lower index and no lane holds the whole logits."""
+        head, tied = self._head_name()
+        cfg = self.cfg
+        if not self._vocab_split(head):
+            return torch.argmax(unembed(top[0][head], xf, cfg, tied=tied),
+                                dim=-1)
+        Vm = cfg.vocab_size // self.M
+
+        def lane_best(m, xf):
+            lg = unembed(top[m][head], xf, cfg, tied=tied)
+            idx = torch.argmax(lg, dim=-1, keepdim=True)
+            return torch.gather(lg, -1, idx)[..., 0], idx[..., 0] + m * Vm
+
+        parts = self.run(lane_best, xf)
+        val, idx = parts[0]
+        for v, i in parts[1:]:
+            take = v > val
+            val, idx = torch.where(take, v, val), torch.where(take, i, idx)
+        return idx
+
+
+class Resting:
+    """Sharded parameters as the serve steps read them: ``tree``, the
+    parameter tree of `Sharded` leaves (no autograd leaves: the serve
+    steps run under ``no_grad``, so `_Gather` builds no graph)."""
+
+    def __init__(self, tree):
+        self.tree = tree
+
+
+class _Rows:
+    """A decode step's hidden state on a `ServePlan`: each data group's
+    rows on the group's home (``parts``, in group order); ``device`` is
+    the first group's home's."""
+
+    def __init__(self, parts, device):
+        self.parts, self.device = parts, device
+
+
+class ServePlan:
+    """The partitioned decode step's plan on a mesh: one `GroupPlan` (of
+    ``plan_cls``) a data group, ``rows`` rows each, run in lockstep, block
+    by block, so a MoE routing group may span data groups as the
+    reference routes the whole batch.  ``B == 1`` is one group (data row
+    0's lanes; the cache's positions lie on every lane).  Each group's
+    rows of the hidden state stay on its home from the embedding to the
+    head (`_Rows`), so every group computes exactly what one device
+    computes on its rows alone (but for MoE routing pooled over groups).
+    The groups meet on the first group's home only to pool a MoE routing
+    group's experts and to put the tokens (or logits) together; ``moved``
+    counts the bytes that cross between groups there and in handing each
+    group its tokens."""
+
+    def __init__(self, model, mesh, params, B: int, plan_cls=None):
+        groups = group_lanes(mesh)
+        if B == 1:
+            groups = groups[:1]
+        elif B % len(groups):
+            raise ValueError(f"a batch of {B} rows does not split over "
+                             f"{len(groups)} data groups")
+        self.cfg, self.mesh, self.B = model.cfg, mesh, B
+        self.rows = B // len(groups)
+        self.params = params
+        self.plans = [(plan_cls or GroupPlan)(model, mesh, lanes,
+                                              Resting(params))
+                      for lanes in groups]
+        self.home = self.plans[0].home
+        self.moved = 0
+
+    def layout(self, model):
+        return _ServeLayout(self)
+
+    def _rows(self, g):
+        return (g * self.rows, (g + 1) * self.rows)
+
+    def _split(self, x):
+        """``x``'s rows of each group, on the group's home."""
+        parts = [_share(x[slice(*self._rows(g))], p.home)
+                 for g, p in enumerate(self.plans)]
+        self._count(parts)
+        return parts
+
+    def _join(self, parts):
+        """The groups' ``parts`` put together on the first group's home."""
+        home_stream = (torch.cuda.current_stream(self.home.device)
+                       if self.home.stream is not None else None)
+        self._count(parts)
+        return torch.cat([_back(t, self.home, home_stream) for t in parts])
+
+    def stack(self, name, seq):
+        tree = self.params
+        tree = tree[name] if name == "enc_stack" else tree["stacks"][name]
+        return [functools.partial(self._period, p, seq) for p in tree]
+
+    def _period(self, ptree, seq):
+        shares = [p._period(ptree, seq, shares=True) for p in self.plans]
+        return {b: [s[b] for s in shares] for b in ptree}
+
+    def block(self, shares, x, spec, cfg, *, positions, enc_out=None,
+              cache=None, decode=False):
+        """`transformer.apply_block` of one decode step, each group on its
+        rows of ``x`` (`_Rows`) and of the sharded ``cache``."""
+        if not decode:
+            raise ValueError("the serve plan decodes; prefill runs each "
+                             "group's forward (`GroupPlan.layout`)")
+        mixer, ffn = spec
+        xs = list(x.parts)
+        pos_t = [_share(positions, p.home) for p in self.plans]
+        new_cache = {"mixer": None}
+        for g, (plan, share) in enumerate(zip(self.plans, shares)):
+            rows = self._rows(g)
+            if mixer == "mamba":
+                out = plan.mamba_decode(share, xs[g], cache["mixer"], rows)
+            else:
+                out = plan.attention_decode(
+                    share, "mixer_attn", xs[g], pos_t[g], cache["mixer"],
+                    rows, window=cfg.window if mixer == "attn_local"
+                    else None)
+            xs[g] = xs[g] + out
+            if "cross" in share.modes:
+                xs[g] = xs[g] + plan.cross_decode(share, xs[g], pos_t[g],
+                                                  cache["cross"], rows)
+            if ffn == "mlp":
+                xs[g] = xs[g] + plan._mlp(share, "ffn_mlp", xs[g])
+        if ffn == "moe":
+            for g, out in enumerate(self._moe(shares, xs)):
+                xs[g] = xs[g] + out
+        c = cache["mixer"]
+        new_cache["mixer"] = ({**c, "pos": c["pos"] + 1} if "pos" in c
+                              else c)
+        if "cross" in cache:
+            new_cache["cross"] = cache["cross"]
+        return _Rows(xs, x.device), None, new_cache
+
+    def _moe(self, shares, xs):
+        """Each group's MoE output, routed as the reference routes the
+        whole batch: in its routing groups of ``_group_size(B S)`` tokens
+        and their capacity.  Where a routing group spans data groups, each
+        group's experts (`GroupPlan.route`) are pooled on the first lane,
+        the slots assigned over the routing group in token order
+        (`moe.slots`), and each group given its own."""
+        cfg = self.cfg
+        S = xs[0].shape[1]
+        g_size = moe_lib._group_size(self.B * S, cfg)
+        T = self.rows * S
+        if T % g_size == 0:
+            return [p._moe(sh, x, group_size=g_size)[0]
+                    for p, sh, x in zip(self.plans, shares, xs)]
+        if g_size % T:
+            raise ValueError(f"a routing group of {g_size} tokens neither "
+                             f"holds nor splits a group's {T}")
+        idx = self._join([p.route(sh, x, g_size)
+                          for p, sh, x in zip(self.plans, shares, xs)])
+        slot, keep = moe_lib.slots(
+            idx.reshape(-1, g_size, cfg.top_k), cfg,
+            moe_lib._capacity(g_size, cfg))
+        slot, keep = slot.reshape(-1, cfg.top_k), keep.reshape(-1, cfg.top_k)
+        assigned = self._split_slots(slot, keep, T)
+        return [p._moe(sh, x, group_size=g_size, assigned=a)[0]
+                for p, sh, x, a in zip(self.plans, shares, xs, assigned)]
+
+    def _split_slots(self, slot, keep, T):
+        """Each group's ``T`` tokens' slots and keep flags, on its home."""
+        out = []
+        for g, p in enumerate(self.plans):
+            part = slice(g * T, (g + 1) * T)
+            out.append((_share(slot[part], p.home),
+                        _share(keep[part], p.home)))
+        self._count(out)
+        return out
+
+    def _count(self, parts):
+        """Adds to ``moved`` the bytes of the groups' ``parts`` (group
+        order) that cross between groups: all but the first group's."""
+        self.moved += sum(_nbytes(t) for t in parts[1:])
+
+
+class _ServeLayout:
+    """One decode step's `models.model.Layout` on a `ServePlan`."""
+
+    def __init__(self, plan):
+        self.plan = plan
+        self.device = plan.home.device
+        self.stack_kw = dict(block_fn=plan.block)
+        self.top = [p.top() for p in plan.plans]
+
+    def stack(self, name, seq):
+        return self.plan.stack(name, seq)
+
+    def _each(self, fn, parts):
+        return [fn(p, t, x) for p, t, x in zip(self.plan.plans, self.top,
+                                              parts)]
+
+    def embed(self, tokens):
+        return _Rows(self._each(lambda p, t, x: p.embed(t, x),
+                                self.plan._split(tokens)), self.device)
+
+    def final_norm(self, x):
+        eps = self.plan.cfg.norm_eps
+        return _Rows(self._each(lambda p, t, x: rms_norm(
+            t[0]["final_norm"], x, eps=eps), x.parts), x.device)
+
+    def logits(self, xf):
+        return self.plan._join(self._each(lambda p, t, x: p.logits(t, x),
+                                          xf.parts))
+
+    def greedy(self, xf):
+        return self.plan._join(self._each(lambda p, t, x: p.greedy(t, x),
+                                          xf.parts))
+
 
 class _Layout:
     """One pass's `models.model.Layout` on a group's lanes
@@ -631,6 +1072,19 @@ class _Layout:
 
     def xent(self, xf, window, labels):
         return self.plan.xent(self.top, xf, window, labels)
+
+    def greedy(self, xf):
+        return self.plan.greedy(self.top, xf)
+
+
+def _widen(s, dtype):
+    """Cache leaf ``s`` (a `Sharded`) in ``dtype``, its shards replaced:
+    a Mamba2 step's conv window takes the wider of the cache's dtype and
+    the compute dtype (as the reference's, whose new cache is the step's
+    output), so a narrower cache widens after its first step."""
+    if s.dtype != dtype:
+        s.shards = [t.to(dtype) for t in s.shards]
+        s.dtype = dtype
 
 
 def _ssm_split(sub, cfg, M) -> bool:

@@ -477,3 +477,63 @@ def gather(s: Sharded, device=None, out: torch.Tensor | None = None, *,
         for i, at, part in gather_plan(s, region):
             out[at].copy_(s.shards[i] if part is None else s.shards[i][part])
     return out
+
+
+def scatter(s: Sharded, region, value: torch.Tensor) -> None:
+    """Write ``value`` (shaped `region_shape(region)`) into ``region`` of
+    ``s`` in place: on every lane that holds part of it, replicas
+    included, so every copy of a slice stays the same.  ``region`` as in
+    `gather_plan`."""
+    with torch.no_grad():
+        for i, dst, src in _scatter_plan(tuple(s.shape), s.mesh, s.spec,
+                                         tuple(_pieces(r) for r in region)):
+            t = s.shards[i]
+            t[dst].copy_(value[src].to(t.device))
+
+
+@functools.lru_cache(maxsize=65536)
+def _scatter_plan(shape, mesh, spec, region):
+    out = []
+    offsets = [[sum(b - a for a, b in pieces[:k]) for k in range(len(pieces))]
+               for pieces in region]
+    for block in itertools.product(*(range(len(p)) for p in region)):
+        sub = tuple(pieces[k] for pieces, k in zip(region, block))
+        for i in range(mesh.size):
+            own = shard_slices(shape, mesh, spec, i)
+            inter = tuple(slice(max(x.start, a), min(x.stop, b))
+                          for x, (a, b) in zip(own, sub))
+            if not all(x.start < x.stop for x in inter):
+                continue
+            src = tuple(slice(x.start - a + off[k], x.stop - a + off[k])
+                        for x, (a, _), off, k in zip(inter, sub, offsets,
+                                                     block))
+            out.append((i, within(inter, own), src))
+    return tuple(out)
+
+
+def shard_tree(tree, mesh, specs):
+    """``tree`` (dicts and lists) with each tensor a `Sharded` on ``mesh``
+    under ``specs`` (a tree shaped like it of specs or `NamedSharding`
+    leaves), in place in its own dicts and lists, as ``jit``'s
+    ``in_shardings`` place a donated argument: each leaf is replaced as
+    soon as it is split, so a whole tensor nothing else holds is freed
+    then, and the whole tree and its shards are never on the lanes
+    together.  A leaf already so sharded is kept, one sharded otherwise is
+    gathered and split again; a leaf that is no tensor (a cache's ``pos``)
+    is kept."""
+    for k in (tree if isinstance(tree, dict) else range(len(tree))):
+        x, sp = tree[k], specs[k]
+        sp = getattr(sp, "spec", sp)
+        if isinstance(x, (dict, list)):
+            shard_tree(x, mesh, sp)
+        elif isinstance(x, Sharded) and x.mesh is mesh and x.spec == sp:
+            continue
+        elif isinstance(x, (Sharded, torch.Tensor)):
+            tree[k] = shard(whole(x), mesh, sp)
+    return tree
+
+
+def shard_cache(cache, mesh, specs):
+    """A decode cache placed on ``mesh`` under ``specs`` (`shard_tree`;
+    the serve counterpart of `train.train_step.shard_state`)."""
+    return shard_tree(cache, mesh, specs)

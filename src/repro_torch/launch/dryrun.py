@@ -20,12 +20,14 @@ single-pod ``(16, 16)`` and multi-pod ``(2, 16, 16)``:
    then one lane's AdamW update on its shards.  Every data group has the
    same shapes, so one group's run proves them all; within the group
    every lane gathers its weights, and lanes 2 and up, whose shares have
-   lane 1's shapes, take lane 1's outputs (`_SampledPlan`).  Prefill and
-   decode: the port has no sharded serve step, so a lane serves its
-   group's rows on a whole replica (`make_prefill_step`,
-   `make_serve_step`), the plan ``replica``.  A shape or spec mismatch
-   raises and fails the cell, as a sharding mismatch fails the
-   reference's compile.
+   lane 1's shapes, take lane 1's outputs (`_SampledPlan`).  Prefill:
+   one group's rows through the partitioned forward and the greedy head
+   split by vocabulary.  Decode: the partitioned decode step
+   (`partition.ServePlan`) on the cache sharded by ``CACHE_RULES``, data
+   groups 0 and 1 run in lockstep, the others taking group 1's outputs
+   (`_SampledServe`).  Every serve cell's plan is ``partitioned``.  A
+   shape or spec mismatch raises and fails the cell, as a sharding
+   mismatch fails the reference's compile.
 2. **Memory**: the bytes each lane holds of the step's arguments
    (parameters, optimizer state, batch, cache: each leaf's shard under
    its spec; the guard keeps shards equal, so every lane holds the
@@ -46,10 +48,13 @@ single-pod ``(16, 16)`` and multi-pod ``(2, 16, 16)``:
    by head its ``H/M`` heads of the ``(B, C, Q, Q, H)`` decay); and on
    the group's
    first lane the one whole gradient leaf the clip norm sums, once the
-   backward pass is over.  Prefill and decode: the arguments, the whole
-   parameters and their compute-dtype copy, and (decode) the group's
-   rows' cache.  XLA's ``temp``, ``output``, ``alias`` and ``code`` have
-   no counterpart: ``null``, with the reason in the record.
+   backward pass is over.  Prefill and decode: the arguments (parameter
+   and cache shards, tokens), one period's gathered shares and the
+   top-level slices (the plan's counts), and for prefill the forward's
+   working set besides its weights (`_Live`: the tensors made and alive
+   at once on the lane); ``cache_bytes``, a lane's cache tensors.  XLA's
+   ``temp``, ``output``, ``alias`` and ``code`` have no counterpart:
+   ``null``, with the reason in the record.
 3. **Cost**: FLOPs counted by ``torch.utils.flop_counter.FlopCounterMode``
    over the whole depth (there is no scan hiding a loop body), for the
    whole step (one group's count times the groups) and for one group
@@ -69,8 +74,12 @@ single-pod ``(16, 16)`` and multi-pod ``(2, 16, 16)``:
    forward's again) and the float32 gradients, loss and metrics pooled
    over the groups; ``reduce-scatter`` the pooled gradient copied to the
    lanes that hold a shard another lane pools.  Prefill and decode:
-   ``all-gather`` the bytes a lane fetches to put the whole parameters
-   (and for decode its group's rows' cache) together.  ``all-to-all``
+   ``all-gather`` the bytes every gather puts together, ``all-reduce``
+   the lanes' inputs and partial outputs moved within a group and, in
+   decode, the bytes that cross between data groups (each group's
+   tokens handed out and put together, a MoE routing group's experts
+   pooled and its slots handed back: `partition.ServePlan.moved`).
+   ``all-to-all``
    and ``collective-permute`` 0; ``n_ops`` the gathers and pooled
    tensors; ``total`` their bytes; all summed over the mesh for one
    step.
@@ -97,6 +106,7 @@ import time
 import traceback
 
 import torch
+import torch.utils._python_dispatch
 import torch.utils.checkpoint
 
 from ..configs import SHAPES, cells, get_config
@@ -106,7 +116,6 @@ from ..distributed import partition
 from ..distributed.sharding import (
     NamedSharding, shard, shard_shape, shard_slices, tree_map,
 )
-from ..models.model import cast_params
 from ..models.transformer import StackSpec, run_stack
 from . import analysis
 from .inputs import cell_specs
@@ -193,42 +202,109 @@ def _rows_of(x, rows):
                        device="meta")
 
 
-def _group_args(model, kind, structs, groups, seq_len):
-    """One data group's arguments (meta): its rows of the batch, and for
-    decode its rows' cache (an argument of the step, as in the reference:
-    whisper's encoder runs here, not in the step)."""
-    first = structs[2] if kind == "decode" else next(iter(
-        structs[1].values()))
+def _group_args(model, structs, groups):
+    """One data group's rows of the train batch (meta)."""
+    first = next(iter(structs[1].values()))
     B = first.shape[0]
     if B % groups:
         raise ValueError(f"{B} rows do not split over {groups} groups")
     rows = B // groups
-    if kind != "decode":
-        return rows, {k: _rows_of(v, rows) for k, v in structs[1].items()}
-    cfg = model.cfg
-    with torch.no_grad():
-        if cfg.is_encoder_decoder:
-            cache = model.init_cache({"enc_frames": torch.empty(
-                (rows, cfg.encoder_seq, cfg.d_model), dtype=torch.bfloat16,
-                device="meta")}, seq_len)
-        else:
-            cache = model.init_cache(rows, seq_len)
-    return rows, (cache, _rows_of(structs[2], rows))
+    return rows, {k: _rows_of(v, rows) for k, v in structs[1].items()}
 
 
-def _serve_group(model, kind, rows, args):
-    """One data group's prefill or decode on meta (the shape proof), on
-    a whole replica: the port's serve steps run on one device."""
-    from ..train.train_step import make_prefill_step, make_serve_step
+def _serve_group(model, kind, structs, shardings, mesh, params):
+    """The partitioned prefill or decode on meta (the shape proof):
+    decode, every group in lockstep (`partition.ServePlan`) on the
+    sharded cache; prefill, one data group's rows (every group has its
+    shapes) through `GroupPlan.layout`, its forward's live bytes a lane
+    counted (`_Live`).  Both on `_SampledPlan` lanes, the greedy head
+    split by vocabulary.  Returns the group plans, the live bytes and
+    the bytes that cross between data groups (decode's `ServePlan.moved`;
+    prefill's groups do not meet)."""
+    from ..distributed.sharding import shard_cache
 
     if kind == "decode":
-        _, nxt = make_serve_step(model)(*args)
-        if tuple(nxt.shape) != (rows, 1):
+        B = structs[2].shape[0]
+        plan = _SampledServe(model, mesh, params, B, plan_cls=_SampledPlan)
+        cache = shard_cache(structs[1], mesh, shardings[1])
+        lay = plan.layout(model)
+        xf, _ = model._decode(lay, cache, structs[2])
+        nxt = lay.greedy(xf)
+        if tuple(nxt.shape) != (B, 1):
             raise ValueError(f"decode gave {tuple(nxt.shape)}")
-    else:
-        out = make_prefill_step(model)(args)
-        if tuple(out.shape) != (rows,):
-            raise ValueError(f"prefill gave {tuple(out.shape)}")
+        return plan.plans, None, plan.moved
+    batch = structs[1]
+    B = next(iter(batch.values())).shape[0]
+    groups = partition.group_lanes(mesh)
+    rows = B // len(groups)
+    plan = _SampledPlan(model, mesh, groups[0], partition.Resting(params))
+    part = {k: _rows_of(v, rows) for k, v in batch.items()}
+    with _Live(plan) as live:
+        lay = plan.layout(model)
+        xf, _ = model._hidden(part, lay)
+        out = lay.greedy(xf[:, -1:])
+    if tuple(out.shape) != (rows, 1):
+        raise ValueError(f"prefill gave {tuple(out.shape)}")
+    return [plan], live.high, 0
+
+
+class _SampledServe(partition.ServePlan):
+    """The decode plan on a production mesh's ``meta`` lanes with groups
+    2 and up sampled: every data group has group 1's shapes, so only
+    groups 0 and 1 run (gather and compute), and the hidden state's rows
+    of groups 2.. are group 1's outputs again.  ``sampled`` is how many
+    groups group 1 stands for."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.sampled = len(self.plans) - 1
+        self.plans = self.plans[:2]
+
+    def _count(self, parts):
+        self.moved += self.sampled * sum(partition._nbytes(t)
+                                         for t in parts[1:2])
+
+    def _join(self, parts):
+        self._count(parts)
+        return torch.cat(list(parts[:1]) + list(parts[1:2]) * self.sampled)
+
+
+class _Live(torch.utils._python_dispatch.TorchDispatchMode):
+    """While entered, the bytes of the tensors made (not views, not
+    written in place, not gathered weights) that are alive at once, by
+    the lane computing (``plan.at``): ``high[m]``, a lane's forward
+    working set besides its weights.  A tensor counts until it is
+    dropped."""
+
+    def __init__(self, plan):
+        super().__init__()
+        self.plan = plan
+        self.now = [0] * plan.M
+        self.high = [0] * plan.M
+        self.seen = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        import weakref
+
+        out = func(*args, **(kwargs or {}))
+        if self.plan.gathering or func.is_view or func._schema.is_mutable:
+            return out
+        for t in (out if isinstance(out, (tuple, list)) else (out,)):
+            if not isinstance(t, torch.Tensor):
+                continue
+            key = t.untyped_storage()._cdata
+            if key in self.seen:
+                continue
+            m, n = self.plan.at, t.untyped_storage().nbytes()
+            self.seen.add(key)
+            self.now[m] += n
+            self.high[m] = max(self.high[m], self.now[m])
+            weakref.finalize(t, self._free, key, m, n)
+        return out
+
+    def _free(self, key, m, n):
+        self.seen.discard(key)
+        self.now[m] -= n
 
 
 class _SampledPlan(partition.GroupPlan):
@@ -246,10 +322,15 @@ class _SampledPlan(partition.GroupPlan):
         self.lane_flops = 0
         self.weights = {}
         self.seqs = {}
+        self.gathering = False
         self._one = None
 
     def _take(self, *args, **kw):
-        out = super()._take(*args, **kw)
+        self.gathering = True
+        try:
+            out = super()._take(*args, **kw)
+        finally:
+            self.gathering = False
         st = out.untyped_storage()
         self.weights[st._cdata] = st
         return out
@@ -258,7 +339,7 @@ class _SampledPlan(partition.GroupPlan):
         self.seqs[name] = seq
         return super().stack(name, seq)
 
-    def _lane_run(self, m, fn, shared):
+    def _lane_run(self, m, fn, shared, i):
         from torch.utils.flop_counter import FlopCounterMode
 
         if m >= 2:
@@ -268,9 +349,9 @@ class _SampledPlan(partition.GroupPlan):
         before, self.at = self.moved, m
         try:
             if m == 0:
-                return super()._lane_run(m, fn, shared)
+                return super()._lane_run(m, fn, shared, i)
             with FlopCounterMode(display=False) as fc:
-                out = super()._lane_run(m, fn, shared)
+                out = super()._lane_run(m, fn, shared, i)
         finally:
             self.at = 0
         self.lane_flops += fc.get_total_flops()
@@ -426,18 +507,8 @@ def _owned_grad_bytes(p_rows, mesh) -> tuple:
     return owned, copied
 
 
-def _cast_bytes(params, cfg) -> int:
-    """The bytes of the compute-dtype copy a model keeps beside its
-    parameters while serving (`LM.compute_params`)."""
-    a, b = [], []
-    _walk_leaves(params, a)
-    _walk_leaves(cast_params(params, cfg), b)
-    return sum(y.numel() * y.element_size() for x, y in zip(a, b)
-               if y is not x)
-
-
 def _collectives(kind, mesh, p_rows, c_rows, groups, plan=None, fwd=None,
-                 copied=0) -> dict:
+                 copied=0, between=0) -> dict:
     """Lane-to-lane bytes of the port's plan for one step (see the module
     note), summed over the mesh."""
     out = {k: 0 for k in COLLECTIVES}
@@ -451,14 +522,13 @@ def _collectives(kind, mesh, p_rows, c_rows, groups, plan=None, fwd=None,
         n_ops += (groups - 1) * (len(p_rows) + 4)
         out["reduce-scatter"] = copied
     else:
-        own = _lane_bytes(p_rows, mesh)
-        out["all-gather"] = groups * (_full_bytes(p_rows) - own)
-        n_ops = groups * len(p_rows)
-        if kind == "decode":
-            full_cache = _full_bytes(c_rows) // groups      # a group's rows
-            out["all-gather"] += groups * max(
-                full_cache - _lane_bytes(c_rows, mesh), 0)
-            n_ops += groups * len(c_rows)
+        # a prefill's group stands for every group; decode's first group
+        # for itself, its second for the rest
+        w = [groups] if kind == "prefill" else [1, groups - 1]
+        out["all-gather"] = sum(k * sum(p.gathered) for k, p in zip(w, plan))
+        out["all-reduce"] = sum(k * p.moved for k, p in zip(w, plan)) \
+            + between
+        n_ops = sum(k * sum(p.gathers) for k, p in zip(w, plan))
     out["n_ops"] = n_ops
     out["total"] = sum(out[k] for k in COLLECTIVES)
     return out
@@ -495,13 +565,16 @@ def plan_cell(cfg, shape, mesh, *, microbatches=1, count_flops=False,
         ("cache", c_rows))}
     arg = sum(lane.values())
     mu_nu = _lane_bytes([r for r in opt_rows if r[0]], mesh)
+    # the cache's tensors (the reference's 0-d int32 ``pos`` counters left
+    # out: the port's are Python ints)
+    cache_bytes = _lane_bytes([r for r in c_rows if r[0]], mesh)
     gb = 1 / 2**30
     memory = {
         "argument_gb": arg * gb, "argument_bytes": arg,
         "params_gb": lane["params"] * gb, "opt_gb": lane["opt"] * gb,
         "batch_gb": lane["batch"] * gb, "cache_gb": lane["cache"] * gb,
-        "state_bytes": lane["params"] + mu_nu,
-        "plan": "partitioned" if kind == "train" else "replica",
+        "state_bytes": lane["params"] + mu_nu, "cache_bytes": cache_bytes,
+        "plan": "partitioned",
         "fits_card_at_rest": arg <= CARD_BYTES,
         "card": CARD,
         "output_gb": None, "temp_gb": None, "alias_gb": None,
@@ -510,18 +583,31 @@ def plan_cell(cfg, shape, mesh, *, microbatches=1, count_flops=False,
     out = {"kind": kind, "groups": groups, "memory": memory}
     t0 = time.perf_counter()
     proved = prove or count_flops
-    if proved:
-        rows, args = _group_args(model, kind, structs, groups, shape.seq_len)
-    if kind != "train":
-        replica = _full_bytes(p_rows) + _cast_bytes(structs[0], cfg)
-        cache = max(_full_bytes(c_rows) // groups - lane["cache"], 0)
-        memory.update(replica_gb=replica * gb, lane_bytes=arg + replica
-                      + cache)
-        if proved:
-            run = lambda: _serve_group(model, kind, rows,  # noqa: E731
-                                       args)
-            group_flops = _flops(run) if count_flops else run()
-        out["collectives"] = _collectives(kind, mesh, p_rows, c_rows, groups)
+    if proved and kind == "train":
+        rows, args = _group_args(model, structs, groups)
+    if kind != "train" and proved:
+        params = tree_map(lambda x, sh: shard(x, mesh, sh.spec),
+                          structs[0], shardings[0])
+        got = {}
+        run = lambda: got.setdefault("run", _serve_group(  # noqa: E731
+            model, kind, structs, shardings, mesh, params))
+        counted = _flops(run) if count_flops else run()
+        plans, live, between = got["run"]
+        if count_flops:
+            # lanes 2.. ran as lane 1; decode ran groups 0 and 1 of all
+            counted += sum(max(p.M - 2, 0) * p.lane_flops for p in plans)
+            group_flops = counted / len(plans)
+        out["collectives"] = _collectives(kind, mesh, p_rows, c_rows, groups,
+                                          plans, between=between)
+        gathered, per_lane, work = [], [], []
+        for p in plans:
+            for m in range(p.M):
+                j = min(m, 1)           # lanes 2.. computed as lane 1
+                gathered.append(p.top_bytes[m] + p.period_bytes[m])
+                work.append(live[j] if live is not None else 0)
+                per_lane.append(arg + gathered[-1] + work[-1])
+        memory.update(gathered_gb=max(gathered) * gb,
+                      working_set_gb=max(work) * gb, lane_bytes=max(per_lane))
     elif proved:
         params = tree_map(lambda x, sh: shard(x, mesh, sh.spec),
                           structs[0].params, shardings[0].params)

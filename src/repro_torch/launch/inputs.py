@@ -152,19 +152,13 @@ def make_train_batch(cfg, shape: ShapeSpec, seed: int = 0, *, device="cpu"):
     return out
 
 
-def cell_specs(arch_cfg, shape: ShapeSpec, mesh):
-    """Everything the dry-run needs for one cell:
-    (model, fn_kind, arg_structs, in_shardings) where fn_kind is
-    'train' | 'prefill' | 'decode'; the model is built on ``meta``."""
-    from ..optim import adamw
-    from ..train.train_step import TrainState
-
-    model = build_model(arch_cfg, device="meta")
-    params_struct = model.params()
-    p_shard = param_tree_shardings(params_struct, mesh)
-    B = shape.global_batch
+def serve_overrides(cfg, B: int, mesh):
+    """The logical-axis overrides of a serve cell (``None``: none): at
+    ``B == 1`` the batch is not split and the KV-cache sequence dim splits
+    over ``data``; where the KV heads do not divide ``model`` the sequence
+    dim splits over ``model`` (as well)."""
     msize = dict(mesh.shape).get("model", 1)
-    heads_ok = msize <= 1 or (arch_cfg.n_kv_heads % msize == 0)
+    heads_ok = msize <= 1 or (cfg.n_kv_heads % msize == 0)
     overrides = {}
     seq_axes = []
     if B == 1:
@@ -178,7 +172,29 @@ def cell_specs(arch_cfg, shape: ShapeSpec, mesh):
         seq_axes.append("model")
     if seq_axes:
         overrides["seq_kv"] = tuple(seq_axes) if len(seq_axes) > 1 else seq_axes[0]
-    overrides = overrides or None
+    return overrides or None
+
+
+def cache_shardings(cache, cfg, B: int, mesh):
+    """The `NamedSharding` of every leaf of a decode cache of ``B`` rows:
+    `CACHE_RULES` under the guard and `serve_overrides` (``pos``:
+    ``P()``)."""
+    return tree_shardings(cache, mesh, CACHE_RULES,
+                          serve_overrides(cfg, B, mesh))
+
+
+def cell_specs(arch_cfg, shape: ShapeSpec, mesh):
+    """Everything the dry-run needs for one cell:
+    (model, fn_kind, arg_structs, in_shardings) where fn_kind is
+    'train' | 'prefill' | 'decode'; the model is built on ``meta``."""
+    from ..optim import adamw
+    from ..train.train_step import TrainState
+
+    model = build_model(arch_cfg, device="meta")
+    params_struct = model.params()
+    p_shard = param_tree_shardings(params_struct, mesh)
+    B = shape.global_batch
+    overrides = serve_overrides(arch_cfg, B, mesh)
 
     if shape.kind == "train":
         batch_struct = train_batch_struct(arch_cfg, shape)
@@ -199,7 +215,7 @@ def cell_specs(arch_cfg, shape: ShapeSpec, mesh):
         cache_struct = model.init_cache(enc_batch, shape.seq_len)
     else:
         cache_struct = model.init_cache(B, shape.seq_len)
-    c_shard = tree_shardings(cache_struct, mesh, CACHE_RULES, overrides)
+    c_shard = cache_shardings(cache_struct, arch_cfg, B, mesh)
     tok_struct = _struct((B, 1), torch.int32)
     t_shard = NamedSharding(
         mesh, _resolve_guarded(mesh, ("batch", None), (B, 1), overrides))

@@ -352,6 +352,61 @@ def attention(
     return out.reshape(B, Sq, H * hd) @ params["wo"], new_cache
 
 
+def decode_qkv(params, x, *, cfg, positions, heads=None):
+    """One decode step's query, rotated and grouped (B, 1, K, rep, hd), and
+    its K and V (B, 1, K, hd), for the heads ``params`` hold (``heads``,
+    as in `attention`): the sequence form of the partitioned decode step
+    projects them on one lane and sends them where the cache lies."""
+    H, K = heads if heads is not None else (cfg.n_heads, cfg.n_kv_heads)
+    hd = cfg.hd
+    xn = rms_norm(params["ln"], x, eps=cfg.norm_eps)
+    q = xn @ params["wq"]
+    if "bq" in params:
+        q = q + params["bq"]
+    q = rope(_split_heads(q, H, hd), positions, theta=cfg.rope_theta)
+    k, v = project_kv(params, xn, cfg=cfg, n_kv=K, positions=positions)
+    return q.reshape(q.shape[0], q.shape[1], K, H // K, hd), k, v
+
+
+def decode_partial(q, ck, cv, *, s0: int, pos: int, window=None):
+    """One lane's part of a decode step's attention: grouped ``q`` against
+    cache positions ``[s0, s0 + S')`` (``ck``, ``cv``: (B, S', K, hd)),
+    the keys at or before ``pos`` (and within ``window``).  Returns the
+    float32 online-softmax state ``(max, sum of exp, acc)``; a lane with
+    no valid key gives ``(-inf, 0, 0)``, which `combine_partials` weighs
+    by zero."""
+    B, Sq, K, rep, hd = q.shape
+    k_idx = s0 + torch.arange(ck.shape[1], device=q.device)
+    valid = k_idx <= pos
+    if window is not None:
+        valid &= k_idx > pos - window
+    s = torch.einsum("bqkrd,bskd->bkrqs", q.to(F32),
+                     ck.to(q.dtype).to(F32)) * hd ** -0.5
+    s = torch.where(valid, s, -torch.inf)
+    m = torch.full((B, K, rep, Sq), -torch.inf, dtype=F32, device=q.device)
+    return _online_softmax_step(
+        m, torch.zeros_like(m), torch.zeros(m.shape + (hd,), dtype=F32,
+                                            device=q.device),
+        s, cv.to(q.dtype), "bkrqs,bskd->bkrqd")
+
+
+def combine_partials(parts, dtype):
+    """Lanes' `decode_partial` states added in lane order by the
+    log-sum-exp rule: the attention output (B, Sq, K, rep, hd) in
+    ``dtype``."""
+    top = parts[0][0]
+    for m, _, _ in parts[1:]:
+        top = torch.maximum(top, m)
+    safe = torch.where(torch.isfinite(top), top, 0.0)
+    l = acc = 0.0
+    for m, lm, am in parts:
+        w = torch.where(torch.isfinite(m), torch.exp(m - safe), 0.0)
+        l = l + lm * w
+        acc = acc + am * w[..., None]
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(dtype)
+
+
 def init_attn_cache(cfg, batch: int, max_len: int, dtype, device=None):
     K, hd = cfg.n_kv_heads, cfg.hd
     return {

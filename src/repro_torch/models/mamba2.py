@@ -12,9 +12,9 @@ Decode path: the O(1)-per-token state recurrence
 carrying (conv_state, ssm_state).
 
 Single B/C group (n_groups=1), multi-head x (H heads of dim P = d_inner/H).
-The training forward also runs on a range of heads (`mamba_gated`,
-`gated_sumsq`, `mamba_project`): the partitioned train step splits the
-heads over its ``model`` lanes.
+The training forward and the decode step also run on a range of heads
+(`mamba_gated`, `mamba_decode_gated`, `gated_sumsq`, `mamba_project`):
+the partitioned steps split the heads over their ``model`` lanes.
 """
 from __future__ import annotations
 
@@ -189,10 +189,16 @@ def init_mamba_cache(cfg, batch: int, dtype, device=None):
     }
 
 
-def mamba_decode(params, x, cache, *, cfg):
-    """One-token decode: (B, 1, d) -> (B, 1, d), O(1) state update."""
+def mamba_decode_gated(params, x, conv, ssm, *, cfg):
+    """One-token decode of the heads ``params`` hold (cut as for
+    `mamba_gated`), from their conv window ``conv`` (B, W-1, channels:
+    their ``x`` channels, then all of B and C) and SSM state ``ssm`` (B,
+    H', N, P): the gated channels (B, H' * P) in ``x``'s dtype, not yet
+    normalised, and the new ``conv`` and ``ssm``."""
     Bsz = x.shape[0]
-    d_in, H, P, N, conv_dim = _dims(cfg)
+    _, _, P, N, _ = _dims(cfg)
+    H = params["A_log"].shape[0]
+    d_in = H * P
     xn = rms_norm(params["ln"], x[:, 0, :], eps=cfg.norm_eps)
     proj = xn @ params["in_proj"]
     z, xs, B_, C_, dtr = _split_proj(proj, d_in, N, H)
@@ -201,8 +207,8 @@ def mamba_decode(params, x, cache, *, cfg):
     conv_w = params["conv"]
     # the reference concatenates the cache (its dtype) with this step's
     # input under jax's promotion; the window takes the wider of the two
-    wdt = torch.promote_types(cache["conv"].dtype, conv_in.dtype)
-    window = torch.cat([cache["conv"].to(wdt), conv_in[:, None, :].to(wdt)], 1)
+    wdt = torch.promote_types(conv.dtype, conv_in.dtype)
+    window = torch.cat([conv.to(wdt), conv_in[:, None, :].to(wdt)], 1)
     cdt = torch.promote_types(wdt, conv_w.dtype)
     conv_out = F.silu(torch.einsum("bwc,wc->bc", window.to(cdt), conv_w.to(cdt)))
     new_conv = window[:, 1:, :]
@@ -212,12 +218,19 @@ def mamba_decode(params, x, cache, *, cfg):
     A = -torch.exp(params["A_log"])
     a = torch.exp(dt * A)                                           # (B,H)
     xh = xs.reshape(Bsz, H, P).to(F32)
-    S = cache["ssm"] * a[..., None, None] + torch.einsum(
+    S = ssm * a[..., None, None] + torch.einsum(
         "bn,bhp->bhnp", B_.to(F32), xh * dt[..., None]
     )
     y = torch.einsum("bn,bhnp->bhp", C_.to(F32), S)
     y = y + params["ssm_D"][None, :, None] * xh
     y = y.reshape(Bsz, d_in).to(x.dtype)
-    y = rms_norm(params["ssm_norm"], y * F.silu(z), eps=cfg.norm_eps)
+    return y * F.silu(z), new_conv, S
+
+
+def mamba_decode(params, x, cache, *, cfg):
+    """One-token decode: (B, 1, d) -> (B, 1, d), O(1) state update."""
+    g, new_conv, S = mamba_decode_gated(params, x, cache["conv"],
+                                        cache["ssm"], cfg=cfg)
+    y = rms_norm(params["ssm_norm"], g, eps=cfg.norm_eps)
     out = (y @ params["out_proj"])[:, None, :]
     return out, {"conv": new_conv, "ssm": S}

@@ -6,7 +6,7 @@ parameters.
   logits, aux       = model.forward(batch)           # train/prefill path
   loss, metrics     = model.loss(batch[, layout=])
   cache             = model.init_cache(batch_size | batch, max_len, dtype)
-  logits, cache     = model.decode_step(cache, last_tokens)
+  logits, cache     = model.decode_step(cache, last_tokens[, layout=])
 
 Batches are dicts: {"tokens"} (LM), +{"image_embeds"} (VLM, stub frontend),
 {"tokens", "enc_frames"} (whisper, stub conv frontend).
@@ -21,9 +21,9 @@ each call, so gradients reach the parameters.
 
 A `Layout` says where a forward pass takes its weights from and how it
 runs its embedding and loss: by default the model's own compute-dtype
-copy on its device; the partitioned train step passes its own to
-`loss` (`distributed.partition.GroupPlan.layout`), so one forward serves
-both.
+copy on its device; the partitioned steps pass their own to `loss` and
+`decode_step` (`distributed.partition`), so one forward and one decode
+serve every step.
 """
 from __future__ import annotations
 
@@ -75,6 +75,13 @@ def softmax_xent(logits, labels):
     return torch.mean(lse - ll)
 
 
+def total_loss(cfg, ce, aux):
+    """A decoder's loss: the cross entropy plus the weighted MoE
+    load-balancing and router z losses of ``aux``."""
+    return (ce + cfg.moe_aux_weight * aux["moe_lb_loss"]
+            + cfg.moe_zloss_weight * aux["moe_z_loss"])
+
+
 def param_count(params) -> int:
     """Parameters of a model (a `nn.Module`) or of a tree of tensors."""
     if isinstance(params, nn.Module):
@@ -97,7 +104,8 @@ class Layout:
     (``enc_stack`` or ``s{i}``) as `run_stack` takes them, ``seq`` its
     query length; ``embed(tokens)``; ``xent(xf, window, labels)``, the
     mean cross entropy of rows ``window`` of the head's logits of the
-    normed hidden states ``xf``."""
+    normed hidden states ``xf``; ``logits(xf)``, the head's logits;
+    ``final_norm(x)``, a decode step's final norm of its hidden state."""
 
     stack_kw: dict = {}
 
@@ -120,6 +128,9 @@ class Layout:
         tied = cfg.tie_embeddings and not cfg.is_encoder_decoder
         return unembed(self.p["embed"] if tied else self.p["lm_head"], xf,
                        cfg, tied=tied)
+
+    def final_norm(self, x):
+        return rms_norm(self.p["final_norm"], x, eps=self.cfg.norm_eps)
 
     def xent(self, xf, window, labels):
         return softmax_xent(self.logits(xf)[:, window[0]:window[1], :],
@@ -184,26 +195,30 @@ class _Model(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def _head(self, p, x):
+    def _decode(self, lay, cache, last_tokens):
+        """One decode step through layout ``lay``: the normed hidden state
+        (B, 1, d) and the new cache."""
         cfg = self.cfg
-        x = rms_norm(p["final_norm"], x, eps=cfg.norm_eps)
-        tied = cfg.tie_embeddings and not cfg.is_encoder_decoder
-        return unembed(p["embed"] if tied else p["lm_head"], x, cfg, tied=tied)
-
-    def _decode(self, p, stacks, cache, last_tokens):
-        cfg = self.cfg
-        x = embed(p["embed"], last_tokens.to(self.device), cfg)
+        x = lay.embed(last_tokens.to(lay.device))
         positions = torch.full((1, 1), cache["pos"], dtype=torch.int64,
-                               device=self.device)
+                               device=lay.device)
         new_stacks = {}
-        for i, st in enumerate(stacks):
+        for i, st in enumerate(self.stack_specs):
             x, _, nc = run_stack(
-                p["stacks"][f"s{i}"], x, st, cfg, positions=positions,
-                caches=cache["stacks"][f"s{i}"], decode=True,
+                lay.stack(f"s{i}", 1), x, st, cfg, positions=positions,
+                caches=cache["stacks"][f"s{i}"], decode=True, **lay.stack_kw,
             )
             new_stacks[f"s{i}"] = nc
-        logits = self._head(p, x)
-        return logits[:, 0, :], {"stacks": new_stacks, "pos": cache["pos"] + 1}
+        return lay.final_norm(x), {"stacks": new_stacks, "pos": cache["pos"] + 1}
+
+    @torch.no_grad()
+    def decode_step(self, cache, last_tokens, layout=Layout):
+        """last_tokens: (B, 1) integers -> (logits (B, V), new cache); the
+        attention caches are updated in place.  ``layout`` as in
+        `loss`."""
+        lay = layout(self)
+        xf, cache = self._decode(lay, cache, last_tokens)
+        return lay.logits(xf)[:, 0, :], cache
 
 
 class LM(_Model):
@@ -263,12 +278,7 @@ class LM(_Model):
         else:
             window, labels = (0, xf.shape[1] - 1), tokens[:, 1:]
         ce = lay.xent(xf, window, labels)
-        total = (
-            ce
-            + cfg.moe_aux_weight * aux["moe_lb_loss"]
-            + cfg.moe_zloss_weight * aux["moe_z_loss"]
-        )
-        return total, {"ce": ce, **aux}
+        return total_loss(cfg, ce, aux), {"ce": ce, **aux}
 
     # ------------------------------------------------------------ decode ---
     @torch.no_grad()
@@ -291,13 +301,6 @@ class LM(_Model):
         for t in range(tokens.shape[1]):
             logits, cache = self.decode_step(cache, tokens[:, t:t + 1])
         return cache, logits
-
-    @torch.no_grad()
-    def decode_step(self, cache, last_tokens):
-        """last_tokens: (B, 1) integers -> (logits (B, V), new cache); the
-        attention caches are updated in place."""
-        return self._decode(self.compute_params(), self.stack_specs, cache,
-                            last_tokens)
 
 
 class EncDec(_Model):
@@ -381,11 +384,6 @@ class EncDec(_Model):
             for i, st in enumerate(self.stack_specs)
         }
         return {"stacks": caches, "pos": 0}
-
-    @torch.no_grad()
-    def decode_step(self, cache, last_tokens):
-        return self._decode(self.compute_params(), self.stack_specs, cache,
-                            last_tokens)
 
 
 def build_model(cfg, *, device=None, generator=None):

@@ -32,8 +32,7 @@ hints partition it (`distributed.partition`):
   hidden dim, experts, the vocabulary over ``model``), gathering a
   period's weights at a time over ``data`` inside the checkpointed
   period function, so under remat they are gathered again in the
-  recompute and no lane holds a replica; Mamba2 blocks run whole on the
-  group's first lane;
+  recompute and no lane holds a replica (Mamba2 by head);
 * each group's gradient comes back a shard at a time, and gradients,
   loss and metrics are pooled over the data groups in lane order as the
   microbatch loop adds them (float32 zeros, add in order, x 1/D), each
@@ -44,11 +43,20 @@ hints partition it (`distributed.partition`):
 
 So a ``(D, 1)`` step equals a one-device step with ``microbatches=D``,
 bit for bit, and a ``(D, M)`` step matches it to float32 rounding (the
-lanes' partial sums added in float32).
+lanes' partial sums added in float32).  A MoE model is the exception: its
+load-balancing loss is a product of two means over the tokens, so the
+groups' router statistics are pooled before it
+(`_pooled_router_groups`), and its ``(D, M)`` step matches the one-device
+step on the whole batch instead (with ``microbatches=k``, microbatch
+``j`` is the reference's rows ``[j B/k, (j+1) B/k)``, split over the
+groups).
 
 `make_serve_step(model)` builds the one-token greedy decode step;
 `make_prefill_step(model)` the forward-only prefill step.  The model owns
-its parameters, so these steps take none.
+its parameters, so these steps take none.  Given ``mesh=`` (a
+`LaneMesh`), each is partitioned over it as the reference's dry-run lays
+its serve cells out (parameters by ``PARAM_RULES``, the cache by
+``CACHE_RULES``): `_sharded_serve_step`, `_sharded_prefill_step`.
 """
 from __future__ import annotations
 
@@ -60,6 +68,8 @@ import torch
 
 from ..distributed import partition, sharding
 from ..launch.mesh import LaneMesh, lane_context, sync_lanes
+from ..models import moe as moe_lib
+from ..models.model import total_loss
 from ..optim import adamw
 from ..optim.adamw import AdamWConfig, OptState
 from ..optim.schedule import warmup_cosine
@@ -184,28 +194,13 @@ def make_train_step(model, opt_cfg: AdamWConfig = AdamWConfig(), *,
 
 def shard_state(state: TrainState, mesh, specs) -> TrainState:
     """``state`` with its parameters and moments as `Sharded` leaves on
-    ``mesh`` under ``specs`` (a tree of specs shaped like the parameters):
-    a whole leaf is split, a leaf sharded otherwise is gathered and split
-    again, a leaf already so sharded is kept.  Each leaf is replaced in
-    ``state``'s own trees as soon as it is split (as a jit with donated
-    arguments takes its input), so a whole tensor nothing else holds is
-    freed then, and the whole state and its shards are never on the
-    lanes together."""
-    def place(t, spec):
-        for k in (t if isinstance(t, dict) else range(len(t))):
-            x = t[k]
-            if isinstance(x, (dict, list)):
-                place(x, spec[k])
-            elif not (isinstance(x, sharding.Sharded) and x.mesh is mesh
-                      and x.spec == spec[k]):
-                t[k] = sharding.shard(sharding.whole(x).detach(), mesh,
-                                      spec[k])
-        return t
-
-    return TrainState(params=place(state.params, specs),
-                      opt=OptState(mu=place(state.opt.mu, specs),
-                                   nu=place(state.opt.nu, specs),
-                                   count=state.opt.count),
+    ``mesh`` under ``specs`` (a tree of specs shaped like the parameters),
+    in place in the state's own trees (`sharding.shard_tree`)."""
+    return TrainState(params=sharding.shard_tree(state.params, mesh, specs),
+                      opt=OptState(
+                          mu=sharding.shard_tree(state.opt.mu, mesh, specs),
+                          nu=sharding.shard_tree(state.opt.nu, mesh, specs),
+                          count=state.opt.count),
                       step=state.step)
 
 
@@ -218,6 +213,8 @@ def _make_sharded_step(model, opt_cfg, mesh, microbatches, sched):
                          f"lane on {lane0.device}")
     with sharding.use_mesh(mesh):
         specs = sharding.param_pspecs(model.params())
+    pool_router = D > 1 and any(
+        ffn == "moe" for st in model.stack_specs for _, ffn in st.period)
 
     def train_step(state: TrainState, batch):
         first = next(iter(adamw._leaves(state.params)))
@@ -234,27 +231,31 @@ def _make_sharded_step(model, opt_cfg, mesh, microbatches, sched):
                              f"{D} data groups")
         rows = B // D
         pool = _Mean(lane0.device)
-        for g, lanes in enumerate(groups):
-            home = mesh.lanes[lanes[0]]
-            # fresh autograd leaves a group: each group's backward runs
-            # on its own lanes' streams
-            proxies = partition.Proxies(state.params)
-            inputs = proxies.grad_inputs()
-            plan = partition.GroupPlan(model, mesh, lanes, proxies)
-            with lane_context(home):
-                part = _to_device({k: v[g * rows:(g + 1) * rows]
-                                   for k, v in batch.items()}, home.device)
-                loss_fn = functools.partial(model.loss, layout=plan.layout)
-                pool.add(*_loss_and_grads(loss_fn, inputs, part,
-                                          microbatches, home.device),
-                         stream=torch.cuda.current_stream(home.device)
-                         if home.stream is not None else None)
-            if home.stream is not None:
-                torch.cuda.current_stream(home.device).wait_stream(
-                    home.stream)
+        if pool_router:
+            proxies = _pooled_router_groups(model, mesh, groups, state,
+                                            batch, microbatches, pool)
+        else:
+            for g, lanes in enumerate(groups):
+                home = mesh.lanes[lanes[0]]
+                # fresh autograd leaves a group: each group's backward
+                # runs on its own lanes' streams
+                proxies = partition.Proxies(state.params)
+                inputs = proxies.grad_inputs()
+                plan = partition.GroupPlan(model, mesh, lanes, proxies)
+                with lane_context(home):
+                    part = _to_device({k: v[g * rows:(g + 1) * rows]
+                                       for k, v in batch.items()},
+                                      home.device)
+                    loss_fn = functools.partial(model.loss,
+                                                layout=plan.layout)
+                    pool.add(*_loss_and_grads(loss_fn, inputs, part,
+                                              microbatches, home.device),
+                             stream=_stream_of(home))
+                _home_waits(home)
+            del inputs, plan, loss_fn
         sync_lanes(mesh)
         loss, metrics, pooled = pool.mean()
-        del inputs, plan, loss_fn, proxies.proxy
+        del proxies.proxy
         offsets, n = [], 0
         for src in proxies.sources:
             offsets.append(n)
@@ -303,11 +304,91 @@ def _make_sharded_step(model, opt_cfg, mesh, microbatches, sched):
     return train_step
 
 
-def make_serve_step(model):
+def _stream_of(lane):
+    return (torch.cuda.current_stream(lane.device)
+            if lane.stream is not None else None)
+
+
+def _home_waits(home):
+    if home.stream is not None:
+        torch.cuda.current_stream(home.device).wait_stream(home.stream)
+
+
+def _pooled_router_groups(model, mesh, groups, state, batch, microbatches,
+                          pool):
+    """The data groups' loss and gradients of a MoE model, its
+    load-balancing loss over the reference's rows rather than a group's.
+
+    Microbatch ``j`` is the reference's rows ``[j B/k, (j+1) B/k)``, split
+    over the ``D`` groups in contiguous blocks.  For each microbatch,
+    every group's forward pass runs first, each MoE layer's ``(me, ce)``
+    kept (`moe.router_stats`, so a recompute under remat records
+    nothing); then each layer's ``ce`` is pooled over the groups (float32,
+    added in group order, x 1/D) and every group's loss is formed with
+    the pooled ``ce``, detached (it is a one-hot count: no gradient), and
+    its own ``me``; then the backward passes run.  The mean of the groups'
+    losses is the reference's loss of the whole microbatch.  Each (j, g)
+    is added to ``pool`` in that order.  Returns the last group's
+    `Proxies` (all share the sources and leaves)."""
+    cfg = model.cfg
+    D, k = len(groups), microbatches
+    B = next(iter(batch.values())).shape[0]
+    if B % (D * k):
+        raise ValueError(f"a batch of {B} rows does not split into {k} "
+                         f"microbatches over {D} data groups")
+    rows = B // (D * k)
+    plans = []
+    for lanes in groups:
+        proxies = partition.Proxies(state.params)
+        plans.append((mesh.lanes[lanes[0]], proxies, proxies.grad_inputs(),
+                      partition.GroupPlan(model, mesh, lanes, proxies)))
+    for j in range(k):
+        fwd = []
+        for g, (home, _, _, plan) in enumerate(plans):
+            lo = (j * D + g) * rows
+            with lane_context(home), torch.enable_grad(), \
+                    moe_lib.router_stats() as stats:
+                part = _to_device({n: v[lo:lo + rows]
+                                   for n, v in batch.items()}, home.device)
+                _, metrics = model.loss(part, layout=plan.layout)
+            fwd.append((metrics, stats))
+        n_layers = len(fwd[0][1])
+        ce = []
+        for layer in range(n_layers):
+            acc = torch.zeros((cfg.n_experts,), dtype=F32,
+                              device=mesh.lanes[0].device)
+            for _, stats in fwd:
+                acc = acc + stats[layer][1].detach().to(acc.device)
+            ce.append(acc * (1.0 / D))
+        for (home, _, inputs, _), (metrics, stats) in zip(plans, fwd):
+            with lane_context(home), torch.enable_grad():
+                lb = torch.zeros((), dtype=F32, device=home.device)
+                for (me, _), c in zip(stats, ce):
+                    lb = lb + moe_lib.lb_loss(me, c.to(home.device), cfg)
+                loss = total_loss(cfg, metrics["ce"],
+                                  {**metrics, "moe_lb_loss": lb})
+                gs = torch.autograd.grad(loss, inputs, allow_unused=True)
+                gs = [torch.zeros_like(p, dtype=F32) if x is None else x
+                      for p, x in zip(inputs, gs)]
+                pool.add(loss.detach(),
+                         {"ce": metrics["ce"].detach(), "moe_lb_loss":
+                          lb.detach(), "moe_z_loss":
+                          metrics["moe_z_loss"].detach()}, gs,
+                         stream=_stream_of(home))
+            _home_waits(home)
+        del fwd
+    return plans[-1][1]
+
+
+def make_serve_step(model, mesh=None):
+    """The greedy one-token decode step ``(cache, last_tokens (B, 1)) ->
+    (cache, next tokens (B, 1))``; ties go to the first maximum.  With a
+    `LaneMesh`, the partitioned step (`_sharded_serve_step`)."""
+    if mesh is not None:
+        return _sharded_serve_step(model, mesh)
+
     @torch.no_grad()
     def serve_step(cache, last_tokens):
-        """Greedy one-token decode. last_tokens: (B, 1) integers.  Returns
-        (cache, next tokens (B, 1)); ties go to the first maximum."""
         logits, cache = model.decode_step(cache, last_tokens)
         nxt = torch.argmax(logits, dim=-1)[:, None]
         return cache, nxt
@@ -315,12 +396,119 @@ def make_serve_step(model):
     return serve_step
 
 
-def make_prefill_step(model):
+def make_prefill_step(model, mesh=None):
     """Forward pass only (inference prefill): the greedy next token after
-    each sequence."""
+    each sequence.  With a `LaneMesh`, the partitioned step
+    (`_sharded_prefill_step`)."""
+    if mesh is not None:
+        return _sharded_prefill_step(model, mesh)
+
     @torch.no_grad()
     def prefill_step(batch):
         logits, _ = model.forward(batch)
         return torch.argmax(logits[:, -1, :], dim=-1)
 
+    return prefill_step
+
+
+def serve_params(model, mesh):
+    """The model's parameters sharded onto ``mesh`` by ``PARAM_RULES``
+    under the guard, as the reference's serve cells place them: made once
+    a mesh and kept with the model, whose own parameters are then
+    released (`LM.release`), so no lane holds a whole replica at rest."""
+    got = getattr(model, "_mesh_params", None)
+    if got is not None and got[0] is mesh:
+        return got[1]
+    whole = model.params()
+    with sharding.use_mesh(mesh):
+        specs = sharding.param_pspecs(whole)
+    params = sharding.tree_map(
+        lambda x, sp: sharding.shard(x.detach(), mesh, sp), whole, specs)
+    del whole
+    model.release()
+    model._mesh_params = (mesh, params)
+    return params
+
+
+def _sharded_serve_step(model, mesh):
+    """The decode step partitioned over ``mesh`` (`partition.ServePlan`):
+    the parameters at rest by ``PARAM_RULES`` (`serve_params`), the cache
+    by ``CACHE_RULES`` (`launch.inputs.cache_shardings`; a whole cache is
+    sharded in place on the first call, `sharding.shard_cache`), the rows
+    split over the data groups (``B % D`` must be 0; at ``B == 1`` one
+    group and the cache's positions over ``data``), a period's weights
+    gathered at a time over ``data``, the products split over ``model``,
+    the greedy head by vocabulary.
+
+    ``logits=True`` also returns the step's logits (B, V), put together
+    on the first lane, for checks.  ``model.decode_step(cache, tokens,
+    layout=ServePlan(...).layout)`` gives the same logits but not the
+    split head's tokens, and the step writes the cache in place, so a
+    check cannot call both on one step: it takes both from this call."""
+    from ..launch.inputs import cache_shardings
+
+    @torch.no_grad()
+    def serve_step(cache, last_tokens, *, logits=False):
+        params = serve_params(model, mesh)
+        B = last_tokens.shape[0]
+        cache = sharding.shard_cache(
+            cache, mesh, cache_shardings(cache, model.cfg, B, mesh))
+        lay = partition.ServePlan(model, mesh, params, B).layout(model)
+        xf, cache = model._decode(lay, cache, last_tokens)
+        nxt = lay.greedy(xf)
+        out = (cache, nxt, lay.logits(xf)[:, 0, :]) if logits \
+            else (cache, nxt)
+        sync_lanes(mesh)
+        return out
+
+    serve_step.mesh = mesh
+    return serve_step
+
+
+def _sharded_prefill_step(model, mesh):
+    """The prefill partitioned over ``mesh``: each data group's rows
+    through the partitioned forward (`LM._hidden` with
+    `partition.GroupPlan.layout`: a period's weights gathered at a time,
+    attention in ``heads`` or ``ctx`` mode, the MLP by columns, MoE by
+    experts) and the greedy head split by vocabulary on the last
+    position; the tokens put together on the first lane.  ``B == 1`` is
+    one group, as in decode.  A MoE routing group must not span data
+    groups (the forward routes a group's tokens alone)."""
+    everyone = partition.group_lanes(mesh)
+    cfg = model.cfg
+
+    @torch.no_grad()
+    def prefill_step(batch):
+        params = serve_params(model, mesh)
+        B = next(iter(batch.values())).shape[0]
+        groups = everyone if B > 1 else everyone[:1]
+        D = len(groups)
+        if B % D:
+            raise ValueError(f"a batch of {B} rows does not split over "
+                             f"{D} data groups")
+        rows = B // D
+        if cfg.n_experts:
+            S = batch["tokens"].shape[1] + cfg.num_patches
+            g_size = moe_lib._group_size(B * S, cfg)
+            if (rows * S) % g_size:
+                raise ValueError(f"a MoE routing group of {g_size} tokens "
+                                 f"spans data groups of {rows * S}")
+        toks = []
+        for g, lanes in enumerate(groups):
+            home = mesh.lanes[lanes[0]]
+            plan = partition.GroupPlan(model, mesh, lanes,
+                                       partition.Resting(params))
+            with lane_context(home):
+                part = _to_device({k: v[g * rows:(g + 1) * rows]
+                                   for k, v in batch.items()}, home.device)
+                lay = plan.layout(model)
+                xf, _ = model._hidden(part, lay)
+                toks.append(lay.greedy(xf[:, -1:])[:, 0])
+            _home_waits(home)
+        lane0 = mesh.lanes[0]
+        out = torch.cat([t.to(lane0.device) for t in toks])
+        sync_lanes(mesh)
+        return out
+
+    prefill_step.mesh = mesh
     return prefill_step

@@ -32,6 +32,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.distributed.sharding import NamedSharding
 from repro_torch.launch import dryrun, inputs
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import build_model
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CELLS = [("qwen2-0.5b", "train_4k"), ("qwen2-0.5b", "decode_32k"),
@@ -228,3 +229,54 @@ def test_import_sets_no_environment_variable():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env=env, timeout=300)
     assert r.returncode == 0 and "ENV-OK" in r.stdout, r.stderr[-2000:]
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("qwen2-0.5b", ShapeSpec("decode_4k", 4_096, 128, "decode")),
+    ("jamba-v0.1-52b", ShapeSpec("long_32k", 32_768, 1, "decode")),
+    ("qwen2-0.5b", ShapeSpec("prefill_1k", 1_024, 32, "train"))],
+    ids=["decode", "decode_b1", "prefill"])
+def test_serve_cells_are_partitioned(arch, shape):
+    """A decode cell (and one of a single row) and a prefill cell on the
+    (16, 16) production mesh (shorter sequences than the production
+    cells, the same layout): the shape proof runs the partitioned steps,
+    the plan is ``partitioned``, a lane's bytes count its gathered
+    shares (and prefill's working set), and its cache bytes equal those
+    of the cache `sharding.shard_cache` places on the lanes."""
+    from repro_torch.distributed.sharding import shard_cache
+
+    cfg = get_config(arch)
+    mesh = make_production_mesh(device="meta")
+    rec = dryrun.plan_cell(cfg, shape, mesh, count_flops=True)
+    mem = rec["memory"]
+    assert rec["kind"] == ("decode" if shape.kind == "decode" else "prefill")
+    assert mem["plan"] == "partitioned" and mem["fits_card"]
+    assert mem["lane_bytes"] > mem["argument_bytes"] + mem["gathered_gb"] \
+        * 2**30 * 0.99 > mem["argument_bytes"]
+    assert (mem["working_set_gb"] > 0) == (shape.kind != "decode")
+    assert rec["flops"] > 0 and rec["collectives"]["all-gather"] > 0
+    if shape.kind != "decode":
+        return
+    cache = build_model(cfg, device="meta").init_cache(shape.global_batch,
+                                                       shape.seq_len)
+    leaves = []
+    _tensors(cache, leaves)
+    whole = sum(x.numel() * x.element_size() for x in leaves)
+    shard_cache(cache, mesh, inputs.cache_shardings(
+        cache, cfg, shape.global_batch, mesh))
+    leaves = []
+    _tensors(cache, leaves)
+    lanes = {sum(x.lane_bytes(i) for x in leaves) for i in range(mesh.size)}
+    assert lanes == {mem["cache_bytes"]}
+    assert whole // mesh.size <= mem["cache_bytes"] < whole
+
+
+def _tensors(t, out):
+    if isinstance(t, dict):
+        for v in t.values():
+            _tensors(v, out)
+    elif isinstance(t, list):
+        for v in t:
+            _tensors(v, out)
+    elif not isinstance(t, int):
+        out.append(t)

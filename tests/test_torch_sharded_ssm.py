@@ -13,17 +13,23 @@ Bars:
 - the port's ``(2, 2)`` and ``(1, 4)`` steps (Mamba2 in ``heads`` mode:
   2 and 1 of the 4 heads a lane; jamba's attention, with 2 KV heads, in
   ``heads`` mode at M 2 and ``ctx`` mode at M 4) against the reference's
-  single-device and ``(2, 2)`` steps, and at D 2 against its
-  ``microbatches=2`` step: every metric of the three steps within 1e-5
-  relative, and the parameters and both moments after the last step
-  within 1e-4 absolute (the reference test's bars).  The port's data
-  groups are microbatches: jamba's MoE load-balancing loss, a product of
-  two means over the tokens, is then the mean of each group's, where the
-  reference's mesh step takes it over the whole batch (1.0e-2 apart
-  here: ROADMAP queue 3), so jamba at D 2 is held to the reference's
-  ``microbatches=2`` step alone;
+  single-device and ``(2, 2)`` steps, and mamba2-130m's at D 2 against
+  its ``microbatches=2`` step: every metric of the three steps within
+  1e-5 relative, and the parameters and both moments after the last step
+  within 1e-4 absolute (the reference test's bars).  The MoE
+  load-balancing loss (a product of two means over the tokens) is pooled
+  over the data groups (`train_step._pooled_router_groups`), so jamba's
+  mesh step at D 2 is the reference's whole-batch step;
+- the MoE configs (jamba, phi3.5-moe, deepseek-moe) at ``(2, 2)``,
+  ``(2, 1)`` and ``(1, 4)`` against the reference's single-device step,
+  and jamba's ``(2, 2)`` step with ``microbatches=2`` (each group's
+  microbatch the reference's rows) against the reference's
+  ``microbatches=2`` step, within the same bars;
 - a ``(2, 1)`` step against the port's one-device step with
-  ``microbatches=2``: bit for bit (metrics, parameters, moments);
+  ``microbatches=2``: bit for bit (metrics, parameters, moments) for
+  mamba2-130m; for jamba (MoE) against the reference's single-device
+  step within the bars above, since its load-balancing loss is now the
+  whole batch's, not the mean of two microbatches';
 - counted by ``repro_torch.testing.tally.GatherTally`` and each gather's
   shape: no lane gathers a whole ``in_proj`` or ``out_proj``; each
   lane's Mamba2 block is exactly its share (``ln`` whole; of ``in_proj``
@@ -56,6 +62,11 @@ from repro_torch.train import init_state, make_train_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ("mamba2-130m", "jamba-v0.1-52b")
+MOE_ARCHS = ("jamba-v0.1-52b", "phi3.5-moe-42b-a6.6b", "deepseek-moe-16b")
+# the reference steps each config needs: (tag, mesh shape or None, mb)
+REF_TAGS = {a: (("one", None, 1), ("mb2", None, 2), ("mesh", (2, 2), 1))
+            for a in ARCHS}
+REF_TAGS.update({a: (("one", None, 1),) for a in MOE_ARCHS[1:]})
 F32 = ("float32", "float32")
 ROWS, SEQ, STEPS = 8, 16, 3
 METRIC_RTOL, STATE_ATOL = 1e-5, 1e-4
@@ -97,7 +108,7 @@ def reference(tmp_path_factory):
                     jax.tree_util.tree_flatten_with_path(tree)[0]}}
 
         rec = {{}}
-        for arch in {ARCHS!r}:
+        for arch, tags in {REF_TAGS!r}.items():
             cfg = get_smoke_config(arch).scaled(dtypes={F32!r})
             m = build_model(cfg)
             state0 = init_state(m, jax.random.PRNGKey(0))
@@ -105,9 +116,8 @@ def reference(tmp_path_factory):
                 0, cfg.vocab_size, ({ROWS}, {SEQ})).astype(np.int32)
             rec[arch + ":toks"] = toks
             rec.update(flat(state0.params, arch + ":init:"))
-            for tag, mesh, mb in (
-                    ("one", None, 1), ("mb2", None, 2),
-                    ("mesh", make_dev_mesh((2, 2), ("data", "model")), 1)):
+            for tag, shape, mb in tags:
+                mesh = shape and make_dev_mesh(shape, ("data", "model"))
                 state = state0
                 with (contextlib.nullcontext() if mesh is None
                       else use_mesh(mesh)):
@@ -132,13 +142,13 @@ def reference(tmp_path_factory):
     with np.load(out) as z:
         rec = {k: z[k] for k in z.files}
     res = {}
-    for arch in ARCHS:
+    for arch, tags in REF_TAGS.items():
         def part(tag):
             n = len(tag)
             return {k[n:]: v for k, v in rec.items() if k.startswith(tag)}
         res[arch] = {"toks": rec[arch + ":toks"],
                      "init": _unflatten(part(arch + ":init:"))}
-        for tag in ("one", "mb2", "mesh"):
+        for tag, _, _ in tags:
             got = {"metrics": [
                 {k: float(v) for k, v in part(f"{arch}:{tag}:m{i}:").items()}
                 for i in range(STEPS)]}
@@ -165,7 +175,7 @@ def _run(arch, reference, *, shape=None, microbatches=1):
     else:
         mesh = tmesh.make_dev_mesh(shape, ("data", "model"), device="cpu")
         with sh.use_mesh(mesh):
-            step = make_train_step(m)
+            step = make_train_step(m, microbatches=microbatches)
     batch = {"tokens": torch.from_numpy(reference[arch]["toks"])}
     state, metrics = init_state(m), []
     for _ in range(STEPS):
@@ -174,16 +184,7 @@ def _run(arch, reference, *, shape=None, microbatches=1):
     return metrics, _state_np(train_state_to_reference(state)), state
 
 
-@pytest.mark.parametrize("shape", [(2, 2), (1, 4)], ids=["2x2", "1x4"])
-@pytest.mark.parametrize("arch", ARCHS)
-def test_model_split_step_matches_the_reference(reference, arch, shape):
-    """Against the reference's single-device and ``(2, 2)`` steps, and at
-    D 2 its ``microbatches=2`` step; jamba's at D 2 against that one
-    alone (its MoE load-balancing loss is per data group in the port, over
-    the whole batch in the reference's mesh step: ROADMAP queue 3)."""
-    metrics, state, _ = _run(arch, reference, shape=shape)
-    tags = ("one", "mesh") if shape[0] == 1 else ("mb2",) if \
-        tsmoke(arch).n_experts else ("one", "mesh", "mb2")
+def _against(reference, arch, tags, metrics, state):
     for tag in tags:
         want = reference[arch][tag]
         for got_m, want_m in zip(metrics, want["metrics"]):
@@ -198,10 +199,53 @@ def test_model_split_step_matches_the_reference(reference, arch, shape):
             assert d < STATE_ATOL, (tag, name, d)
 
 
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)], ids=["2x2", "1x4"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_model_split_step_matches_the_reference(reference, arch, shape):
+    """Against the reference's single-device and ``(2, 2)`` steps, and
+    mamba2-130m's at D 2 its ``microbatches=2`` step (jamba's MoE
+    load-balancing loss is pooled over the data groups, so its D 2 step
+    is the whole batch's, as the reference's mesh step)."""
+    metrics, state, _ = _run(arch, reference, shape=shape)
+    tags = ("one", "mesh") if shape[0] == 1 or tsmoke(arch).n_experts \
+        else ("one", "mesh", "mb2")
+    _against(reference, arch, tags, metrics, state)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (2, 1), (1, 4)],
+                         ids=["2x2", "2x1", "1x4"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_mesh_step_matches_the_reference(reference, arch, shape):
+    """The MoE configs' mesh steps against the reference's single-device
+    step: the load-balancing loss pooled over the data groups is the
+    whole batch's (it was the mean of each group's, 1.0e-2 apart on
+    jamba at (2, 2): ROADMAP queue 3, repaired)."""
+    metrics, state, _ = _run(arch, reference, shape=shape)
+    _against(reference, arch, ("one",), metrics, state)
+
+
+def test_moe_mesh_microbatches_take_the_reference_rows(reference):
+    """jamba's ``(2, 2)`` step with ``microbatches=2``: microbatch ``j``
+    is the reference's rows ``[4j, 4j + 4)``, split over the two groups,
+    its load-balancing loss pooled over them: the reference's
+    ``microbatches=2`` step."""
+    arch = "jamba-v0.1-52b"
+    metrics, state, _ = _run(arch, reference, shape=(2, 2), microbatches=2)
+    _against(reference, arch, ("mb2",), metrics, state)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_data_mesh_step_equals_microbatches_bit_for_bit(reference, arch):
-    m1, s1, _ = _run(arch, reference, microbatches=2)
+    """mamba2-130m: ``(2, 1)`` equals the one-device ``microbatches=2``
+    step bit for bit.  jamba (MoE): its ``(2, 1)`` step pools the
+    load-balancing loss over the groups, so it is the reference's
+    single-device step's, within the bars, not two microbatches'."""
     m2, s2, _ = _run(arch, reference, shape=(2, 1))
+    if tsmoke(arch).n_experts:
+        _against(reference, arch, ("one",), m2, s2)
+        assert (s2["count"], s2["step"]) == (STEPS, STEPS)
+        return
+    m1, s1, _ = _run(arch, reference, microbatches=2)
     assert m1 == m2
     for name in ("params", "mu", "nu"):
         for k, a in s1[name].items():
