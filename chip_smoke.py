@@ -94,7 +94,10 @@ words, 5 components, target cardinality 5):
   steps at full width, against ``--mesh 1x1 --microbatches 2`` (the
   same losses) and ``--mesh 1x1``, each lane's bytes at rest beside the
   dry-run's count, and its step-5 checkpoint resumed on ``4x1`` and
-  ``1x1`` (``lm_train_mesh``); ``launch/train.py --arch mamba2-130m
+  ``1x1``, and the 2x2 run again with ``cfg.seq_parallel`` (token rows
+  kept on their model lanes between blocks; each lane's saved
+  activations beside the dry-run's) (``lm_train_mesh``);
+  ``launch/train.py --arch mamba2-130m
   --mesh 2x2`` at full width, 4 steps, its Mamba2 blocks split by head
   over ``model``, against ``--mesh 1x1 --microbatches 2`` and ``--mesh
   2x1``, each lane's gathered bytes for one Mamba2 period beside the
@@ -3535,14 +3538,15 @@ def _lm_train_small_vocab(vocab=512, steps=60):
 def phase_lm_train():
     """``launch/train.py --arch qwen2-0.5b`` at its published width with
     its own dtypes (float32 parameters, bfloat16 compute), ``--batch 8
-    --seq 128 --steps 60 --ckpt-every 30`` (100 and 50 before the serve
-    mesh phase took their time): every loss finite; the means
+    --seq 128 --steps 40 --ckpt-every 20`` (100 and 50 before the serve
+    mesh phase took their time, 60 and 30 before the row-split run of
+    ``lm_train_mesh`` did): every loss finite; the means
     of the first and last 10 losses, reported and not gated (at the full
     151,936-word vocabulary the loss stays near ln V in 100 steps); the
     first 60 steps with the vocabulary cut to 512 words, whose loss must
     fall (`_lm_train_small_vocab`); 10 steps on the run's last batch,
     whose loss must fall by more than 1 (the model fits a batch); the
-    step's ms (median of steps 10-59 of the trainer's own timing, each
+    step's ms (median of steps 10-39 of the trainer's own timing, each
     ending in a synchronize), tokens/s, peak device memory and
     ``train_mfu`` (``analysis.train_model_flops`` over the median step,
     over 989 TFLOP/s) beside the card's name and power limit; a profile
@@ -3560,8 +3564,8 @@ def phase_lm_train():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        res = launcher.main([*TRAIN_ARGS, "--steps", "60", "--ckpt-every",
-                             "30", "--ckpt-dir", os.path.join(root, "run")])
+        res = launcher.main([*TRAIN_ARGS, "--steps", "40", "--ckpt-every",
+                             "20", "--ckpt-dir", os.path.join(root, "run")])
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         trainer = res["trainer"]
@@ -3571,7 +3575,7 @@ def phase_lm_train():
         p90_s = float(np.percentile(times[10:], 90))
         flops = analysis.train_model_flops(cfg, 8, 128)
         step, state = trainer.train_step, res["state"]
-        batch = trainer.make_batch(trainer.pipeline.batch_at(59))
+        batch = trainer.make_batch(trainer.pipeline.batch_at(39))
         prof = _lm_train_profile(step.model, step, state, batch)
         fit = _lm_train_one_batch(step, state, batch)
         del res, trainer, step, state, batch
@@ -3590,13 +3594,13 @@ def phase_lm_train():
                    card=smi)
         emit("lm_train", **row)
         print(f"lm_train qwen2-0.5b B 8 S 128: {row['step_ms_median']:.1f} "
-              f"ms a step (median, steps 10-59), {row['tokens_per_s']:.0f} "
+              f"ms a step (median, steps 10-39), {row['tokens_per_s']:.0f} "
               f"tokens/s, train_mfu {row['train_mfu']:.4f}, max memory "
               f"{peak / 2**30:.2f} GiB, loss {row['loss_first10']:.3f} -> "
               f"{row['loss_last10']:.3f} (vocabulary 512: "
               f"{witness['loss_first10']:.3f} -> "
               f"{witness['loss_last10']:.3f}) on {smi}", flush=True)
-        check(len(loss) == 60 and np.isfinite(loss).all(),
+        check(len(loss) == 40 and np.isfinite(loss).all(),
               "lm_train: a loss is not finite")
         check(witness["finite"]
               and witness["loss_last10"] < witness["loss_first10"],
@@ -3605,8 +3609,8 @@ def phase_lm_train():
         check(np.isfinite(fit).all() and fit[-1] < fit[0] - 1.0,
               f"lm_train: {len(fit)} steps on one batch did not fit it: "
               f"{fit}")
-        check(kinds[-1] == ("checkpoint", 60)
-              and ("checkpoint", 30) in kinds,
+        check(kinds[-1] == ("checkpoint", 40)
+              and ("checkpoint", 20) in kinds,
               f"lm_train: checkpoints {kinds}")
         shutil.rmtree(os.path.join(root, "run"))
         kr = _lm_train_kill_resume(root)
@@ -3698,13 +3702,16 @@ def _max_diff(a, b):
 
 
 def _mesh_run(root, name, mesh, steps, extra=(), *, ckpt_every=1000,
-              resume_from=None, tally=False, args=TRAIN_ARGS):
+              resume_from=None, tally=False, args=TRAIN_ARGS, cfg=None):
     """``launch/train.py`` in this process on ``--mesh mesh`` (``args``:
     qwen2-0.5b, B 8, S 128), optionally resumed from the checkpoint directory
     ``resume_from`` (linked into a directory of its own); the losses, ms
     a step (median of the steps after the first), peak memory and the
     whole final state on the card.  ``tally``: each lane's high-water of
-    gathered weights (`repro_torch.testing.tally.GatherTally`)."""
+    gathered weights (`repro_torch.testing.tally.GatherTally`).  ``cfg``:
+    config fields the launcher's config takes for this run (such as
+    ``seq_parallel``, which has no launcher flag, as the reference's
+    launcher has none)."""
     import contextlib
 
     import numpy as np
@@ -3719,10 +3726,16 @@ def _mesh_run(root, name, mesh, steps, extra=(), *, ckpt_every=1000,
             d, os.path.basename(resume_from)), copy_function=os.link)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with (GatherTally() if tally else contextlib.nullcontext()) as count:
-        res = launcher.main([*args, "--mesh", mesh, "--steps",
-                             str(steps), "--ckpt-every", str(ckpt_every),
-                             "--ckpt-dir", d, *extra])
+    get_config = launcher.get_config
+    if cfg:
+        launcher.get_config = lambda arch: get_config(arch).scaled(**cfg)
+    try:
+        with (GatherTally() if tally else contextlib.nullcontext()) as count:
+            res = launcher.main([*args, "--mesh", mesh, "--steps",
+                                 str(steps), "--ckpt-every", str(ckpt_every),
+                                 "--ckpt-dir", d, *extra])
+    finally:
+        launcher.get_config = get_config
     wall = time.perf_counter() - t0
     trainer, state = res["trainer"], res["state"]
     _, loss, times = (np.array(c) for c in zip(*trainer.history))
@@ -3754,6 +3767,54 @@ UPDATE_BAR = 0.1
 UPDATE_BARS = {"bk": 0.75}
 
 
+def _saved_by_lane(mesh_shape=(2, 2)):
+    """The activations each lane of the first data group keeps for the
+    backward pass of the partitioned train step, without and with
+    ``cfg.seq_parallel`` (qwen2-0.5b at full width, B 8, S 128, on 4
+    lanes forced onto the card), counted by
+    `repro_torch.launch.dryrun.train_saved` (saved tensors by lane; the
+    periods' inputs; one period's), beside the dry-run's count of the
+    same cell on ``meta`` lanes.  Seeded weights (drawn on the card) and
+    int32 tokens, the dry-run's stand-in dtype."""
+    import torch
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.models import build_model
+
+    D, M = mesh_shape
+    cell = ShapeSpec("train_b8_s128", 128, 8, "train")
+    meta = make_dev_mesh(mesh_shape, ("data", "model"), device="meta")
+    base = get_config("qwen2-0.5b")
+    out = {}
+    with _forced_lanes(D * M):
+        model = build_model(base, device="cuda", generator=torch.Generator(
+            "cuda").manual_seed(0))
+        mesh = make_dev_mesh(mesh_shape, ("data", "model"), device="cuda")
+        with sharding.use_mesh(mesh):
+            specs = sharding.param_pspecs(model.params())
+        params = sharding.tree_map(
+            lambda x, sp: sharding.shard(x.detach(), mesh, sp),
+            model.params(), specs)
+        model.release()
+        tokens = torch.randint(0, base.vocab_size, (8 // D, 128),
+                               generator=torch.Generator().manual_seed(0))
+        for tag, sp in (("2x2", False), ("2x2_sp", True)):
+            cfg = base.scaled(seq_parallel=sp)
+            model.cfg = cfg
+            dry = dryrun.plan_cell(cfg, cell, meta)["memory"]
+            card = dryrun.train_saved(model, mesh, params, {
+                "tokens": tokens.to("cuda", torch.int32)})
+            out[tag] = dict(card=card, dry={k: dry[k] for k in (
+                "saved_bytes", "input_bytes", "period_saved_bytes",
+                "activation_gb", "gathered_gb", "lane_gb", "plan")})
+        del model, params
+        _lm_free()
+    return out
+
+
 def phase_lm_train_mesh(steps=6):
     """``launch/train.py --arch qwen2-0.5b --batch 8 --seq 128 --steps 6``
     at full width on lanes forced onto the card, the partitioned sharded
@@ -3770,8 +3831,18 @@ def phase_lm_train_mesh(steps=6):
     process's peak (at most 14.6 GB at 2x2); then the 2x2 run's
     mid-run checkpoint resumed to the end on ``2x2`` (equal to the
     uninterrupted run bit for bit: the step repeats with no difference)
-    and on ``4x1``.  Six steps (ten before the step was partitioned and
-    took twice as long) keep the phase near its earlier time."""
+    and on ``4x1``.  Then ``2x2_sp``: the same 2x2 run with
+    ``cfg.seq_parallel`` set through the config (no launcher flag, as the
+    reference's launcher has none; each data group's hidden state in row
+    blocks on its model lanes between blocks, a period's weights gathered
+    whole), held to the 2x2 run's bars against ``1x1 --microbatches 2``
+    and its bytes at rest to the dry-run's; each lane's saved
+    activations of one group's pass, with and without the setting,
+    counted on the card (`dryrun.train_saved`) equal to the dry-run's
+    count on ``meta`` lanes, and the setting's periods' inputs a lane
+    1/M of the 2x2 run's home lane's.  Six steps (ten before the step
+    was partitioned and took twice as long) keep the phase near its
+    earlier time."""
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_dev_mesh
@@ -3813,12 +3884,25 @@ def phase_lm_train_mesh(steps=6):
                                                whole_mb2)
         mb2["loss_max_rel_diff"] = max(
             abs(x - y) / abs(y) for x, y in zip(a["losses"], mb2["losses"]))
-        del whole_a, whole_mb2
+        del whole_a
+        # cfg.seq_parallel: the hidden state in row blocks on the model
+        # lanes between blocks, weights gathered whole instead
+        sp, whole_sp = _mesh_run(root, "2x2_sp", "2x2", steps, tally=True,
+                                 cfg={"seq_parallel": True})
+        sp["vs"] = "1x1_microbatches_2"
+        sp["max_abs_diff"] = _max_diff(whole_mb2, whole_sp)
+        sp["update_rel_err"] = _update_errors("qwen2-0.5b", whole_sp,
+                                              whole_mb2)
+        sp["loss_max_rel_diff"] = max(
+            abs(x - y) / abs(y) for x, y in zip(sp["losses"], mb2["losses"]))
+        runs["2x2_sp"] = sp
+        del whole_sp, whole_mb2
         _lm_free()
+        saved = _saved_by_lane()
     for r in runs.values():
         r.pop("dir")
     row = dict(arch="qwen2-0.5b", batch=8, seq=128, steps=steps,
-               dryrun_state_bytes_per_lane=dry, runs=runs,
+               dryrun_state_bytes_per_lane=dry, runs=runs, saved=saved,
                seconds=time.perf_counter() - t_phase, card=smi)
     emit("lm_train_mesh", **row)
     r21, r22, r41 = (runs[k] for k in ("2x1", "resume_2x2", "resume_4x1"))
@@ -3854,6 +3938,41 @@ def phase_lm_train_mesh(steps=6):
     check(a["max_memory_allocated"] <= 14.6e9,
           f"lm_train_mesh: the 2x2 run's peak {a['max_memory_allocated']} "
           "is above 14.6 GB")
+    s2, s_unset = saved["2x2_sp"], saved["2x2"]
+    print(f"lm_train_mesh 2x2_sp (seq_parallel): {sp['step_ms_median']:.1f} "
+          f"ms a step, peak {sp['max_memory_allocated'] / 1e9:.2f} GB, "
+          f"losses within {sp['loss_max_rel_diff']:.2e} of microbatches 2, "
+          f"state {sp['max_abs_diff']:.2e}; saved activations a lane "
+          f"{s2['card']['saved']} (dry-run {s2['dry']['saved_bytes']}), the "
+          f"periods' inputs {s2['card']['inputs']} against the 2x2 run's "
+          f"{s_unset['card']['inputs']}; gathered high-water a lane "
+          f"{[x['gathered_high'] for x in sp['lanes']]} (2x2 "
+          f"{[x['gathered_high'] for x in a['lanes']]}); on {smi}",
+          flush=True)
+    check(all(b == dry for b in sp["lane_bytes"]),
+          f"lm_train_mesh: 2x2_sp bytes at rest {sp['lane_bytes']} != "
+          f"dry-run {dry}")
+    check(sp["loss_max_rel_diff"] <= 5e-4 and sp["max_abs_diff"] <= 6e-4,
+          f"lm_train_mesh: 2x2_sp against microbatches 2: losses "
+          f"{sp['loss_max_rel_diff']}, state {sp['max_abs_diff']}")
+    bad = {k: v for k, v in sp["update_rel_err"].items()
+           if v > UPDATE_BARS.get(k, UPDATE_BAR)}
+    check(not bad, f"lm_train_mesh: 2x2_sp's updates against microbatches "
+          f"2's: {bad}")
+    for tag, got in saved.items():
+        card, meta = got["card"], got["dry"]
+        check(card["saved"] == meta["saved_bytes"]
+              and card["inputs"] == meta["input_bytes"]
+              and card["period"] == meta["period_saved_bytes"],
+              f"lm_train_mesh: {tag}'s saved activations a lane on the card "
+              f"{card} differ from the dry-run's {meta}")
+    M = 2
+    check(all(abs(M * x - s_unset["card"]["inputs"][0])
+              <= 0.01 * s_unset["card"]["inputs"][0]
+              for x in s2["card"]["inputs"]),
+          f"lm_train_mesh: 2x2_sp's periods' inputs a lane "
+          f"{s2['card']['inputs']} are not 1/{M} of the 2x2 run's home "
+          f"lane's {s_unset['card']['inputs'][0]}")
 
 
 SSM_TRAIN_ARGS = ["--arch", "mamba2-130m", "--batch", "8", "--seq", "128"]
@@ -3997,7 +4116,8 @@ SERVE_MESH_BAR = 2e-3            # lm_full_width's decode-vs-forward bar
 # 3.9e-3 of it, and the meshes' sums in another order read 1.41e-2
 # (qwen2-0.5b) and 2.19e-2 (mamba2-130m) of it; a wrong lane gives O(1)
 SERVE_MESH_BF16_BAR = 5e-2
-SERVE_ROWS, SERVE_PROMPT, SERVE_GEN, SERVE_CACHE = 8, 16, 8, 64
+# a prompt of 12 (16 before the 2x2_sp run of lm_train_mesh took its time)
+SERVE_ROWS, SERVE_PROMPT, SERVE_GEN, SERVE_CACHE = 8, 12, 8, 64
 
 
 def _serve_run(model, feed, mesh=None, rows=slice(None)):
@@ -4068,7 +4188,7 @@ def phase_lm_serve_mesh():
     ``make_prefill_step(model, mesh)``) at full width on lanes forced onto
     the card: qwen2-0.5b with its default dtypes (float32 weights,
     bfloat16 compute and cache), seed-0 weights, 8 rows, a cache of 64
-    positions, a prompt of 16 fed through the decode step, then 8 greedy
+    positions, a prompt of 12 fed through the decode step, then 8 greedy
     steps, on one device and on ``2x2`` (heads form: 7 query heads and 1
     KV head a lane), ``1x4`` (sequence form: 2 KV heads do not divide 4,
     16 positions a lane) and ``2x1``; the same in float32 (TF32 off) on

@@ -50,6 +50,39 @@ embedding and loss are the lanes' shares:
   divides by ``d_in``, and each lane scales its channels by the result
   and returns its partial output (two rounds, `GroupPlan._mamba`).
 
+**Row blocks** (``cfg.seq_parallel``, the reference's "activations stay
+token-sharded over 'model' between blocks; weights all-gather instead").
+Where the ``M`` model lanes divide a stack's sequence (`GroupPlan.
+rows_for`, a stack at a time: whisper's encoder and decoder decide
+apart; elsewhere the pass runs as without the setting, as ``constrain``
+drops a ``ctx`` that does not divide), the group's hidden state between
+blocks is `RowBlocks`: lane ``m`` holds rows ``[m S/M, (m+1) S/M)`` of
+every sequence, so a checkpointed period keeps each lane's rows of its
+input and no lane the whole.  Each lane gathers a period's leaves whole
+(``rows`` mode):
+
+* attention never splits by heads (the reference's ``heads_ok = ... and
+  not sp``): each lane projects the K/V of its rows, receives every
+  lane's K/V of the keys its rows can attend (causal and window spans in
+  whole KV blocks, `GroupPlan._key_span`) and attends its query rows at
+  their global positions; cross attention takes the encoder output's
+  row blocks, or home's whole output where they do not split;
+* the MLP runs on each lane's rows on whole weights (the reference's
+  ``(batch, ctx, None)`` hidden state);
+* Mamba2 and MoE, whose convolution, scan and routing group cross row
+  boundaries, run on the rows joined on home in lane order (as above),
+  their output handed back a row block a lane;
+* the embedding is looked up on home with the whole table and split;
+  each lane norms its rows and takes their logits over the whole
+  vocabulary with the whole head (the tied table, gathered on every
+  lane), its cross entropy summed in float32, the sums added on home in
+  lane order (`GroupPlan.xent_rows`); prefill's last position is the
+  last lane's.
+
+Decode (``seq`` 1, whose ``ctx`` the reference drops) runs its MLP whole
+on home under the setting and is otherwise unchanged.  The K/V exchange,
+the joins and splits count in ``moved``.
+
 Partial outputs are added on the group's first lane ("home") in lane
 order, in float32, and cast once; ``ctx`` rows are put side by side.
 Where the divisibility guard of `sharding.resolve` left a product's
@@ -93,10 +126,12 @@ rows (MoE routing aside).
 
 **Lanes and streams.**  Each lane's share is queued on its stream
 (`lane_context`, which orders it after home's work); home waits on a
-lane's stream before it reads the lane's output, and every tensor read
-on a stream other than its maker's is marked ``record_stream`` for it.
-Every period runs in `GroupPlan.scope`: on home's stream, and at its end
-all the group's lanes wait on home and the stream the period was entered
+lane's stream before it reads the lane's output (a lane on the lanes'
+whose K/V it receives), and every tensor read on a stream other than its
+maker's is marked ``record_stream`` for it.  Every period runs in
+`GroupPlan.scope`: on home's stream, and at its end (under the setting
+home first waits on every lane, whose row blocks it did not read) all
+the group's lanes wait on home and the stream the period was entered
 from waits on home, so the recompute of a checkpointed period, entered
 from whichever lane's backward operation first needs it, is complete on
 every stream before any of them reads it.  Autograd runs each backward
@@ -257,6 +292,10 @@ class GroupPlan:
         self.gathered = [0] * self.M
         self.top_bytes = [0] * self.M
         self.period_bytes = [0] * self.M
+        self.sp = bool(self.cfg.seq_parallel) and self.M > 1
+        # storage -> (position, storage) of the hidden states the plan made
+        # while a count of saved tensors is on (`launch.dryrun`), else None
+        self.owner = None
 
     # -- leaves ---------------------------------------------------------
     def _dtype(self, proxy, stacked: bool):
@@ -337,11 +376,23 @@ class GroupPlan:
         self.top_bytes = [a - b for a, b in zip(self.gathered, before)]
         return out
 
+    def rows_for(self, S: int) -> bool:
+        """Whether a stack of query length ``S`` holds its hidden state in
+        row blocks (`RowBlocks`): under ``cfg.seq_parallel`` where the ``M``
+        lanes divide ``S``, the counterpart of ``constrain`` dropping a
+        ``ctx`` that does not divide.  It is decided a stack at a time, so
+        an encoder and its decoder (whisper) may differ."""
+        return self.sp and S % self.M == 0
+
     def _block_modes(self, block, seq) -> dict:
         """Each product's mode (in decode, with ``seq`` 1, attention that
         does not split by heads is ``home``: `attention_decode`'s sequence
-        form)."""
+        form).  A stack in row blocks (`rows_for`) runs attention and the
+        MLP in ``rows`` mode, every lane on whole weights and its own
+        rows; under ``cfg.seq_parallel`` the decode MLP (``seq`` 1, whose
+        ``ctx`` the reference drops) is whole on home."""
         cfg, M = self.cfg, self.M
+        rows = self.rows_for(seq)
         modes = {}
         for name, sub in block.items():
             if M == 1:
@@ -353,10 +404,12 @@ class GroupPlan:
                     _names_model(sub[k].spec, -1) for k in sub
                     if k in ("wq", "wk", "wv", "bq", "bk", "bv")) \
                     and _names_model(sub["wo"].spec, 0)
-                modes[name] = ("heads" if heads else
+                modes[name] = ("rows" if rows else "heads" if heads else
                                "ctx" if seq % M == 0 else "home")
             elif name == "ffn_mlp":
-                modes[name] = "split" if _mlp_split(sub) else "home"
+                modes[name] = ("rows" if rows else
+                               "home" if self.sp and seq == 1 else
+                               "split" if _mlp_split(sub) else "home")
             elif name == "ffn_moe":
                 split = cfg.n_experts % M == 0
                 modes[name] = "split" if split else "home"
@@ -394,7 +447,8 @@ class GroupPlan:
                         sub["shared"], m, modes["shared"] == "home", True)
                 tree[name] = t
             else:
-                tree[name] = self._tree(sub, m, mode == "ctx", True)
+                tree[name] = self._tree(sub, m, mode in ("ctx", "rows"),
+                                        True)
 
     def _period(self, ptree, seq, *, shares=False):
         """A period's leaves gathered on the lanes that use them: the
@@ -439,6 +493,11 @@ class GroupPlan:
         entry = torch.cuda.current_stream(self.home.device)
         with lane_context(self.home):
             yield
+        if self.sp:
+            # row blocks are made on the lanes' streams: home first
+            # waits on them all
+            for i in self.lanes[1:]:
+                self.home.stream.wait_stream(self.mesh.lanes[i].stream)
         for i in self.lanes[1:]:
             self.mesh.lanes[i].stream.wait_stream(self.home.stream)
         entry.wait_stream(self.home.stream)
@@ -450,23 +509,133 @@ class GroupPlan:
         home."""
         home_stream = (torch.cuda.current_stream(self.home.device)
                        if self.home.stream is not None else None)
-        outs = []
-        for m, i in enumerate(self.lanes if lanes is None else lanes):
-            lane = self.mesh.lanes[i]
-            outs.append(self._lane_run(m, fn, shared, i))
+        group = self.lanes if lanes is None else lanes
+        order = (self._order(range(len(group))) if lanes is None
+                 else range(len(group)))
+        outs = [None] * len(group)
+        for m in order:
+            lane = self.mesh.lanes[group[m]]
+            outs[m] = self._lane_run(m, fn, shared, group[m])
             if lane.stream is not None and lane.stream != home_stream:
                 home_stream.wait_stream(lane.stream)
         return [_back(o, self.home, home_stream) for o in outs]
 
-    def _lane_run(self, m, fn, shared, i):
+    def _order(self, positions) -> list:
+        """The group's positions in the order their shares run: as given
+        (the dry-run's sampled plan runs first the lane that stands for
+        the others)."""
+        return list(positions)
+
+    def _lane_run(self, m, fn, shared, i, local=False):
         """The share of `run` at position ``m``, on mesh lane ``i``'s
-        stream."""
+        stream (``local``: on inputs the lane holds, its output kept
+        there: no bytes counted in ``moved``)."""
         lane = self.mesh.lanes[i]
         with lane_context(lane):
             out = fn(m, *(_share(t, lane) for t in shared))
-        if i != self.lanes[0]:
+        if i != self.lanes[0] and not local:
             self.moved += sum(_nbytes(t) for t in (*shared, out))
         return out
+
+    # -- row blocks (cfg.seq_parallel) ------------------------------------
+    def _own(self, parts, lanes):
+        """Marks ``parts`` as hidden states of the lanes at ``lanes``
+        (positions) while a count of saved tensors is on."""
+        if self.owner is None:
+            return
+        at = dict(zip(lanes, parts))
+        for m in self._order(lanes):
+            st = at[m].untyped_storage()
+            self.owner.setdefault(st._cdata, (m, st))
+
+    def _each(self, fn, *args) -> list:
+        """``fn(m, *parts)`` on each lane ``m`` of the row blocks ``args``
+        (`RowBlocks` on the same lanes), queued on its stream; the results
+        stay on the lanes."""
+        lanes = args[0].lanes
+        out = [None] * len(lanes)
+        for m in self._order(lanes):
+            j = lanes.index(m)
+            out[j] = self._lane_run(m, fn, tuple(a.parts[j] for a in args),
+                                    self.lanes[m], local=True)
+        return out
+
+    def _hand(self, t, rows=None):
+        """Home's tensor ``t`` read on every lane: whole, or (``rows``)
+        lane ``m``'s rows ``[m rows, (m+1) rows)`` of dim 1, as views."""
+        parts = [t if rows is None else t[:, m * rows:(m + 1) * rows]
+                 for m in range(self.M)]
+        return RowBlocks(parts, tuple(range(self.M)), self.home.device)
+
+    def split(self, x):
+        """Home's hidden state ``x`` (B, S, d) as row blocks: lane ``m``
+        copies rows ``[m S/M, (m+1) S/M)`` of every sequence on its
+        stream into a tensor of its own."""
+        def take(m, t):
+            if m:
+                self.moved += _nbytes(t)
+            return t.clone(memory_format=torch.contiguous_format)
+
+        r = x.shape[1] // self.M
+        parts = [None] * self.M
+        for m in self._order(range(self.M)):
+            parts[m] = self._lane_run(m, take, (x[:, m * r:(m + 1) * r],),
+                                      self.lanes[m], local=True)
+        return RowBlocks(parts, tuple(range(self.M)), self.home.device)
+
+    def _to_home(self, parts, lanes) -> list:
+        """The lanes' ``parts`` (at positions ``lanes``) on home, home's
+        stream ordered after theirs."""
+        home_stream = (torch.cuda.current_stream(self.home.device)
+                       if self.home.stream is not None else None)
+        for t, m in zip(parts, lanes):
+            lane = self.mesh.lanes[self.lanes[m]]
+            if lane.stream is not None and lane.stream != home_stream:
+                home_stream.wait_stream(lane.stream)
+            if m:
+                self.moved += _nbytes(t)
+        return [_back(t, self.home, home_stream) for t in parts]
+
+    def join(self, x):
+        """Row blocks ``x`` put together on home in lane order (B, S,
+        d)."""
+        return torch.cat(self._to_home(x.parts, x.lanes), dim=1)
+
+    def _exchange(self, parts, src, spans) -> list:
+        """``parts`` (made on the group's lanes ``src``, positions) put
+        side by side along dim 1 in lane order, cut to ``spans[m]`` (a
+        range of the whole) on each lane ``m`` of the group: each lane
+        receives the parts of its range, its stream ordered after
+        theirs."""
+        ends = [0]
+        for t in parts:
+            ends.append(ends[-1] + t.shape[1])
+        out = [None] * self.M
+        for m in self._order(range(self.M)):
+            lo, hi = spans[m]
+            take = [(j, max(lo, a) - a, min(hi, b) - a) for j, a, b in zip(
+                src, ends, ends[1:]) if max(lo, a) < min(hi, b)]
+            lane = self.mesh.lanes[self.lanes[m]]
+            for j, _, _ in take:
+                other = self.mesh.lanes[self.lanes[j]]
+                if lane.stream is not None and other.stream != lane.stream:
+                    lane.stream.wait_stream(other.stream)
+
+            def cat(m, *ts, take=take):
+                ts = [t[:, a:b] for t, (_, a, b) in zip(ts, take)]
+                self.moved += sum(_nbytes(t) for (j, _, _), t in zip(take, ts)
+                                  if j != m)
+                return torch.cat(ts, dim=1)
+
+            out[m] = self._lane_run(
+                m, cat, tuple(parts[src.index(j)] for j, _, _ in take),
+                self.lanes[m], local=True)
+        return out
+
+    def _residual(self, x, out):
+        parts = self._each(lambda m, a, b: a + b, x, out)
+        self._own(parts, x.lanes)
+        return x.like(parts)
 
     @staticmethod
     def sum(outs):
@@ -482,6 +651,12 @@ class GroupPlan:
         """`transformer.apply_block` on a group's lanes (``M > 1``)."""
         if decode:
             raise NotImplementedError("the partitioned forward trains only")
+        if isinstance(x, RowBlocks) or self.rows_for(x.shape[1]):
+            if not isinstance(x, RowBlocks):
+                x = self.split(x)
+            return self._rows_block(share, x, spec, cfg, positions, enc_out)
+        if isinstance(enc_out, RowBlocks):
+            enc_out = self.join(enc_out)
         mixer, ffn = spec
         aux = None
         if mixer == "mamba":
@@ -503,7 +678,95 @@ class GroupPlan:
         elif ffn == "moe":
             out, aux = self._moe(share, x)
             x = x + out
+        self._own([x], (0,))
         return x, aux, {}
+
+    def _rows_block(self, share, x, spec, cfg, positions, enc_out):
+        """`block` on row blocks ``x`` (`RowBlocks`): attention and the
+        MLP on each lane's rows, Mamba2 and MoE on the rows put together
+        on home (their convolution, scan and routing group cross row
+        boundaries) and handed back; the residual adds on each lane."""
+        mixer, ffn = spec
+        aux = None
+        if mixer == "mamba":
+            out = self.split(self._mamba(share, self.join(x)))
+        else:
+            out = self._rows_attention(
+                share, "mixer_attn", x, positions, None,
+                causal=mixer != "attn_enc",
+                window=cfg.window if mixer == "attn_local" else None)
+        x = self._residual(x, out)
+        if "cross" in share.modes:
+            x = self._residual(x, self._rows_attention(
+                share, "cross", x, positions, enc_out, causal=False,
+                window=None))
+        if ffn == "mlp":
+            trees = [t.get("ffn_mlp") for t in share.trees]
+            x = self._residual(x, x.like(self._each(
+                lambda m, xm: mlp(trees[m], xm, cfg=cfg), x)))
+        elif ffn == "moe":
+            out, aux = self._moe(share, self.join(x))
+            x = self._residual(x, self.split(out))
+        return x, aux, {}
+
+    def _rows_attention(self, share, name, x, positions, kv, *, causal,
+                        window):
+        """Attention in ``rows`` mode, the reference's ``ctx`` on row
+        blocks: each lane projects the K/V of its rows (cross attention:
+        of its rows of the source, or home of the whole source where they
+        do not split), every lane receives them in lane order (of self
+        attention, the keys its rows can attend: `_key_span`), and each
+        attends its query rows, at their global positions, to them and
+        keeps its output rows."""
+        cfg = self.cfg
+        trees = [t.get(name) for t in share.trees]
+        r = x.parts[0].shape[1]
+        pos = self._hand(positions, r)
+        n_kv = cfg.n_kv_heads
+        if kv is None:
+            kvs = self._each(lambda m, xm, pm: project_kv(
+                trees[m], rms_norm(trees[m]["ln"], xm, eps=cfg.norm_eps),
+                cfg=cfg, n_kv=n_kv, positions=pm), x, pos)
+            src, kpos = list(range(self.M)), positions
+            spans = [self._key_span(m * r, (m + 1) * r, positions.shape[1],
+                                    causal, window) for m in range(self.M)]
+        else:
+            S_kv = kv.shape[1]
+            if not isinstance(kv, RowBlocks) and S_kv % self.M == 0:
+                kv = self._hand(kv, S_kv // self.M)
+            if isinstance(kv, RowBlocks):
+                kvs = self._each(lambda m, s: project_kv(
+                    trees[m], s, cfg=cfg, n_kv=n_kv), kv)
+                src = list(kv.lanes)
+            else:
+                kvs, src = [project_kv(trees[0], kv, cfg=cfg, n_kv=n_kv)], [0]
+            kpos = torch.arange(S_kv, device=self.home.device)[None, :]
+            spans = [(0, S_kv)] * self.M
+        lanes = tuple(range(self.M))
+        k = RowBlocks(self._exchange([a for a, _ in kvs], src, spans),
+                      lanes, x.device)
+        v = RowBlocks(self._exchange([b for _, b in kvs], src, spans),
+                      lanes, x.device)
+        kp = RowBlocks([kpos[:, lo:hi] for lo, hi in spans], lanes, x.device)
+        self_attn = kv is None
+        return x.like(self._each(
+            lambda m, xm, pm, km, vm, kpm: attention(
+                trees[m], xm, cfg=cfg, positions=pm,
+                kv=None if self_attn else km, kv_positions=kpm,
+                kv_proj=(km, vm), causal=causal, window=window)[0],
+            x, pos, k, v, kp))
+
+    def _key_span(self, a, b, S, causal, window):
+        """The keys query rows ``[a, b)`` of self attention can attend
+        (causal: none after ``b``; a window: none ``window`` or more
+        before ``a``), widened to whole blocks of ``cfg.attn_kv_block``
+        (so a long span keeps the blockwise form): the other keys are
+        masked for every row, so a lane neither receives nor scores them
+        (the reference's window block skip, as row blocks give it)."""
+        kb = self.cfg.attn_kv_block
+        lo = max(0, a - window + 1) if window is not None else 0
+        hi = b if causal else S
+        return (lo // kb) * kb, min(S, -(-hi // kb) * kb)
 
     def _attention(self, share, name, x, positions, kv, kv_positions, *,
                    causal, window):
@@ -820,6 +1083,58 @@ class GroupPlan:
         return torch.mean(torch.log(se) + mx - ll)
 
 
+    def top_leaf(self, name, m, whole):
+        """Top-level leaf ``name`` gathered for lane ``m``, whole or its
+        slice over ``model``, on its stream, counted in ``top_bytes``."""
+        before = self.gathered[m]
+        with self._on(m):
+            out = self._take(self.proxies.tree[name], m, whole, False)
+        self.top_bytes[m] += self.gathered[m] - before
+        return out
+
+    def norm_rows(self, scales, x):
+        """Each lane's rows of ``x`` (`RowBlocks`) RMS-normed by its copy
+        of the scale (``scales[m]``)."""
+        eps = self.cfg.norm_eps
+        return x.like(self._each(
+            lambda m, xm: rms_norm(scales[m], xm, eps=eps), x))
+
+    def xent_rows(self, top, xf, window, labels):
+        """`xent` on row blocks: each lane's logits of its rows over the
+        whole vocabulary (the reference's ``(batch, ctx, None)``), the
+        float32 sum of its rows' cross entropies within ``window``, the
+        sums added on home in lane order and divided by the count."""
+        cfg = self.cfg
+        head, tied = self._head_name()
+        heads = {m: top[m][head] for m in xf.lanes}
+        w0, w1 = window
+        r = xf.parts[0].shape[1]
+        span = {m: (max(m * r, w0), max(min((m + 1) * r, w1), w0))
+                for m in xf.lanes}
+        labs = RowBlocks([labels[:, span[m][0] - w0:span[m][1] - w0]
+                          for m in xf.lanes], xf.lanes, xf.device)
+
+        def part(m, x, lab):
+            lo, hi = span[m]
+            if hi <= lo:
+                return torch.zeros((), dtype=F32, device=x.device)
+            lg = unembed(heads[m], x[:, lo - m * r:hi - m * r], cfg,
+                         tied=tied).to(F32)
+            ll = torch.gather(lg, -1, lab[..., None].long())[..., 0]
+            return torch.sum(torch.logsumexp(lg, dim=-1) - ll)
+
+        sums = self._to_home(self._each(part, xf, labs), xf.lanes)
+        return self.sum(sums) / (labels.shape[0] * (w1 - w0))
+
+    def greedy_rows(self, top, xf):
+        """`greedy` on row blocks: each lane's rows' first largest logit
+        over the whole vocabulary, the tokens put together on home."""
+        head, tied = self._head_name()
+        heads = {m: top[m][head] for m in xf.lanes}
+        outs = self._each(lambda m, x: torch.argmax(
+            unembed(heads[m], x, self.cfg, tied=tied), dim=-1), xf)
+        return torch.cat(self._to_home(outs, xf.lanes), dim=1)
+
     def _head_name(self):
         cfg = self.cfg
         tied = cfg.tie_embeddings and not cfg.is_encoder_decoder
@@ -1037,10 +1352,10 @@ class _ServeLayout:
         return _Rows(self._each(lambda p, t, x: p.embed(t, x),
                                 self.plan._split(tokens)), self.device)
 
-    def final_norm(self, x):
+    def norm(self, name, x):
         eps = self.plan.cfg.norm_eps
         return _Rows(self._each(lambda p, t, x: rms_norm(
-            t[0]["final_norm"], x, eps=eps), x.parts), x.device)
+            t[0][name], x, eps=eps), x.parts), x.device)
 
     def logits(self, xf):
         return self.plan._join(self._each(lambda p, t, x: p.logits(t, x),
@@ -1051,15 +1366,72 @@ class _ServeLayout:
                                           xf.parts))
 
 
+class RowBlocks:
+    """A hidden state held in row blocks on a data group's lanes (under
+    ``cfg.seq_parallel``): ``parts[j]`` (B, S/M, d) is rows ``[m S/M,
+    (m+1) S/M)`` of every sequence, on the group's lane ``m =
+    lanes[j]`` (its position in the group); ``device`` is home's.
+    `models.transformer.run_stack` checkpoints a period on ``parts``, so
+    each lane keeps its own rows of the period's input."""
+
+    def __init__(self, parts, lanes, device):
+        self.parts, self.lanes, self.device = list(parts), tuple(lanes), device
+
+    @property
+    def shape(self):
+        B, r, d = self.parts[0].shape
+        return (B, r * len(self.parts), d)
+
+    def like(self, parts):
+        return RowBlocks(parts, self.lanes, self.device)
+
+
+class _Leaves:
+    """Lane ``m``'s top-level leaves, each gathered at its first use
+    (`_Layout`, under ``cfg.seq_parallel``) and kept in ``got`` for the
+    pass: whole (``rows``), or as the plan without the setting places
+    them."""
+
+    def __init__(self, plan, got, m, rows):
+        self.plan, self.got, self.m, self.rows = plan, got, m, rows
+
+    def __getitem__(self, name):
+        plan, m = self.plan, self.m
+        sliced = not self.rows and name in ("embed", "lm_head") \
+            and plan._vocab_split(name)
+        if not (self.rows or sliced) and m:
+            raise KeyError(f"lane {m} holds no {name}")
+        key = (name, m, sliced)
+        if key not in self.got:
+            self.got[key] = plan.top_leaf(name, m, not sliced)
+        return self.got[key]
+
+
 class _Layout:
     """One pass's `models.model.Layout` on a group's lanes
-    (`GroupPlan.layout`)."""
+    (`GroupPlan.layout`).  Under ``cfg.seq_parallel`` (``M > 1``) a stack
+    whose length the lanes divide holds its hidden state in `RowBlocks`
+    (`GroupPlan.rows_for`): the embedding is looked up on home with the
+    whole table and split, each lane norms its rows and takes their
+    logits over the whole vocabulary with the whole head (gathered on
+    every lane, as the tied embedding's head needs it anyway); the
+    top-level leaves are gathered at their first use, each as the pass
+    reads it (``rows_top``: whole on every lane; ``top``: as without the
+    setting), so a pass that splits no stack runs as without it."""
 
     def __init__(self, plan):
         self.plan = plan
+        self.cfg = plan.cfg
         self.device = plan.home.device
         self.stack_kw = plan.stack_kw()
-        self.top = plan.top()
+        if plan.sp:
+            plan.top_bytes = [0] * plan.M
+            got = {}
+            self.top = [_Leaves(plan, got, m, False) for m in range(plan.M)]
+            self.rows_top = [_Leaves(plan, got, m, True)
+                             for m in range(plan.M)]
+        else:
+            self.top = plan.top()
 
     def leaf(self, name):
         return self.top[0][name]
@@ -1068,12 +1440,38 @@ class _Layout:
         return self.plan.stack(name, seq)
 
     def embed(self, tokens):
+        if self.plan.rows_for(tokens.shape[1] + self.cfg.num_patches):
+            return embed(self.rows_top[0]["embed"], tokens, self.cfg)
         return self.plan.embed(self.top, tokens)
 
+    def split(self, x):
+        if self.plan.rows_for(x.shape[1]):
+            x = self.plan.split(x)
+            self.plan._own(x.parts, x.lanes)
+            return x
+        self.plan._own([x], (0,))
+        return x
+
+    def norm(self, name, x):
+        if isinstance(x, RowBlocks):
+            return self.plan.norm_rows(
+                {m: self.rows_top[m][name] for m in x.lanes}, x)
+        return rms_norm(self.top[0][name], x, eps=self.cfg.norm_eps)
+
     def xent(self, xf, window, labels):
+        if isinstance(xf, RowBlocks):
+            return self.plan.xent_rows(self.rows_top, xf, window, labels)
         return self.plan.xent(self.top, xf, window, labels)
 
+    def last(self, xf):
+        if isinstance(xf, RowBlocks):
+            return RowBlocks([xf.parts[-1][:, -1:]], xf.lanes[-1:],
+                             xf.device)
+        return xf[:, -1:]
+
     def greedy(self, xf):
+        if isinstance(xf, RowBlocks):
+            return self.plan.greedy_rows(self.rows_top, xf)
         return self.plan.greedy(self.top, xf)
 
 

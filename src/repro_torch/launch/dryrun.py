@@ -20,7 +20,9 @@ single-pod ``(16, 16)`` and multi-pod ``(2, 16, 16)``:
    then one lane's AdamW update on its shards.  Every data group has the
    same shapes, so one group's run proves them all; within the group
    every lane gathers its weights, and lanes 2 and up, whose shares have
-   lane 1's shapes, take lane 1's outputs (`_SampledPlan`).  Prefill:
+   lane 1's shapes, take lane 1's outputs (`_SampledPlan`; under
+   ``cfg.seq_parallel`` lanes 1 and up take the last lane's, whose key
+   span and labelled rows are the longest).  Prefill:
    one group's rows through the partitioned forward and the greedy head
    split by vocabulary.  Decode: the partitioned decode step
    (`partition.ServePlan`) on the cache sharded by ``CACHE_RULES``, data
@@ -242,7 +244,7 @@ def _serve_group(model, kind, structs, shardings, mesh, params):
     with _Live(plan) as live:
         lay = plan.layout(model)
         xf, _ = model._hidden(part, lay)
-        out = lay.greedy(xf[:, -1:])
+        out = lay.greedy(lay.last(xf))
     if tuple(out.shape) != (rows, 1):
         raise ValueError(f"prefill gave {tuple(out.shape)}")
     return [plan], live.high, 0
@@ -311,19 +313,26 @@ class _SampledPlan(partition.GroupPlan):
     """The partitioned plan on a production group's ``meta`` lanes (16
     of them, where an operation costs a fraction of a millisecond): every
     lane gathers its weights, but lanes 2 and up, whose shares have lane
-    1's shapes, compute nothing and take lane 1's outputs.  Besides the
-    plan's own counts it keeps ``lane_flops``, lane 1's FLOPs; ``at``,
-    the lane computing now (0 outside `run`); ``weights``, the storages
-    of the weights gathered; ``seqs``, each stack's query length."""
+    1's shapes, compute nothing and take lane 1's outputs.  Under
+    ``cfg.seq_parallel`` the lane standing for the others (``rep``) is
+    the last, which runs first after home: row blocks give lanes key
+    spans and label windows of their own, the last lane's the longest
+    (the whole sequence's keys, all its rows labelled but one), so its
+    counts bound the others'.  Besides the plan's own counts it keeps
+    ``lane_flops``, ``rep``'s FLOPs; ``at``, the lane computing now (0
+    outside `run`); ``weights``, the storages of the weights gathered;
+    ``seqs``, each stack's query length."""
 
     def __init__(self, *args):
         super().__init__(*args)
+        self.rep = self.M - 1 if self.sp else 1
         self.at = 0
         self.lane_flops = 0
         self.weights = {}
         self.seqs = {}
         self.gathering = False
         self._one = None
+        self.owner = {}
 
     def _take(self, *args, **kw):
         self.gathering = True
@@ -339,19 +348,31 @@ class _SampledPlan(partition.GroupPlan):
         self.seqs[name] = seq
         return super().stack(name, seq)
 
-    def _lane_run(self, m, fn, shared, i):
+    def _order(self, positions):
+        return sorted(positions, key=lambda m: (m != 0, m != self.rep, m))
+
+    def run(self, fn, *shared, lanes=None):
+        if lanes is None:
+            return super().run(fn, *shared)
+        rep, self.rep = self.rep, 1     # a subset's positions: lane 1 stands
+        try:
+            return super().run(fn, *shared, lanes=lanes)
+        finally:
+            self.rep = rep
+
+    def _lane_run(self, m, fn, shared, i, local=False):
         from torch.utils.flop_counter import FlopCounterMode
 
-        if m >= 2:
+        if m not in (0, self.rep):
             out, moved = self._one
             self.moved += moved
             return out
         before, self.at = self.moved, m
         try:
             if m == 0:
-                return super()._lane_run(m, fn, shared, i)
+                return super()._lane_run(m, fn, shared, i, local)
             with FlopCounterMode(display=False) as fc:
-                out = super()._lane_run(m, fn, shared, i)
+                out = super()._lane_run(m, fn, shared, i, local)
         finally:
             self.at = 0
         self.lane_flops += fc.get_total_flops()
@@ -361,17 +382,23 @@ class _SampledPlan(partition.GroupPlan):
 
 class _Saved:
     """The bytes of the tensors autograd saves for the backward pass
-    while this is entered, by the lane computing (``plan.at``): a storage
+    while this is entered, by lane: a hidden state the plan made on the
+    lane that holds it (``plan.owner``: a period's input row blocks under
+    ``cfg.seq_parallel``, which the checkpoint saves outside any lane's
+    run), any other tensor on the lane computing (``plan.at``); a storage
     counted once, the gathered weights and the storages of ``skip`` left
-    out.  ``high[m]`` is the most over the times it was entered."""
+    out.  ``high[m]`` is the most over the times it was entered, and
+    ``inputs[m]`` the hidden states' part of it."""
 
     def __init__(self, plan, skip=()):
         self.plan = plan
         self.skip = {t.untyped_storage()._cdata for t in skip}
         self.high = [0] * plan.M
+        self.inputs = [0] * plan.M
 
     def __enter__(self):
         self.now = [0] * self.plan.M
+        self.now_in = [0] * self.plan.M
         self.seen = {}
         self.hooks = torch.autograd.graph.saved_tensors_hooks(
             self._pack, lambda t: t)
@@ -381,6 +408,7 @@ class _Saved:
     def __exit__(self, *exc):
         self.hooks.__exit__(*exc)
         self.high = [max(h, n) for h, n in zip(self.high, self.now)]
+        self.inputs = [max(h, n) for h, n in zip(self.inputs, self.now_in)]
         self.seen = None
 
     def _pack(self, t):
@@ -389,7 +417,11 @@ class _Saved:
         if k not in self.seen and k not in self.plan.weights \
                 and k not in self.skip:
             self.seen[k] = st
-            self.now[self.plan.at] += st.nbytes()
+            own = self.plan.owner.get(k)
+            m = self.plan.at if own is None else own[0]
+            self.now[m] += st.nbytes()
+            if own is not None:
+                self.now_in[m] += st.nbytes()
         return t
 
 
@@ -427,7 +459,27 @@ def _train_group(model, args, mesh, params, microbatches):
     if loss.shape != () or any(g.shape != p.shape
                                for g, p in zip(grads, inputs)):
         raise ValueError("train: a gradient's shape is not its shard's")
-    return plan, fwd, outer.high
+    return plan, fwd, outer
+
+
+def train_saved(model, mesh, params, batch, microbatches=1) -> dict:
+    """The activations one data group's lanes keep for the backward pass
+    of the partitioned train step, counted on whatever device the mesh's
+    lanes are (the card's, or ``meta`` as `plan_cell` counts them): the
+    first group's rows ``batch`` through `_train_group` on ``params``
+    (the parameters sharded onto ``mesh``), then each stack's first
+    period alone (`_period_saved`).  Per lane of the group (lanes 1 and
+    up count as the plan's ``rep``: lane 1, or under
+    ``cfg.seq_parallel`` the last): ``saved``, the bytes saved outside the
+    checkpointed periods, ``inputs``, the periods' input hidden states
+    among them, and ``period``, the most one period saves."""
+    plan, _, outer = _train_group(model, batch, mesh, params, microbatches)
+    rows = next(iter(batch.values())).shape[0] // microbatches
+    period = _period_saved(model, plan, rows)
+    pick = lambda xs: [xs[plan.rep if m else 0]  # noqa: E731
+                      for m in range(plan.M)]
+    return {"saved": pick(outer.high), "inputs": pick(outer.inputs),
+            "period": pick(period)}
 
 
 def _stacks(model):
@@ -574,7 +626,8 @@ def plan_cell(cfg, shape, mesh, *, microbatches=1, count_flops=False,
         "params_gb": lane["params"] * gb, "opt_gb": lane["opt"] * gb,
         "batch_gb": lane["batch"] * gb, "cache_gb": lane["cache"] * gb,
         "state_bytes": lane["params"] + mu_nu, "cache_bytes": cache_bytes,
-        "plan": "partitioned",
+        "plan": ("partitioned, token rows over model (seq_parallel)"
+                 if cfg.seq_parallel else "partitioned"),
         "fits_card_at_rest": arg <= CARD_BYTES,
         "card": CARD,
         "output_gb": None, "temp_gb": None, "alias_gb": None,
@@ -602,7 +655,7 @@ def plan_cell(cfg, shape, mesh, *, microbatches=1, count_flops=False,
         gathered, per_lane, work = [], [], []
         for p in plans:
             for m in range(p.M):
-                j = min(m, 1)           # lanes 2.. computed as lane 1
+                j = p.rep if m else 0   # lanes 1.. computed as rep
                 gathered.append(p.top_bytes[m] + p.period_bytes[m])
                 work.append(live[j] if live is not None else 0)
                 per_lane.append(arg + gathered[-1] + work[-1])
@@ -615,7 +668,8 @@ def plan_cell(cfg, shape, mesh, *, microbatches=1, count_flops=False,
         run = lambda: got.setdefault("run", _train_group(  # noqa: E731
             model, args, mesh, params, microbatches))
         group_flops = _flops(run) if count_flops else run()
-        plan, fwd, outer = got["run"]
+        plan, fwd, saved = got["run"]
+        outer = saved.high
         if count_flops:
             # lanes 2.. ran as lane 1; their backward is twice the forward
             group_flops += max(plan.M - 2, 0) * (
@@ -630,7 +684,7 @@ def plan_cell(cfg, shape, mesh, *, microbatches=1, count_flops=False,
         full = cfg.remat == "full"
         gathered, act, per_lane = [], [], []
         for m, i in enumerate(plan.lanes):
-            j = min(m, 1)           # lanes 2.. computed as lane 1
+            j = plan.rep if m else 0    # lanes 1.. computed as rep
             gathered.append(plan.top_bytes[m] + 2 * plan.period_bytes[m]
                             if full else fwd["gathered"][m])
             act.append(outer[j] + (period[j] if full else 0))
@@ -640,7 +694,12 @@ def plan_cell(cfg, shape, mesh, *, microbatches=1, count_flops=False,
         memory.update(
             gathered_gb=max(gathered) * gb, activation_gb=max(act) * gb,
             grad_gb=2 * max(owned) * gb, norm_leaf_gb=norm_leaf * gb,
-            lane_bytes=max(per_lane))
+            lane_bytes=max(per_lane),
+            saved_bytes=[outer[plan.rep if m else 0] for m in range(plan.M)],
+            input_bytes=[saved.inputs[plan.rep if m else 0]
+                         for m in range(plan.M)],
+            period_saved_bytes=[period[plan.rep if m else 0]
+                                for m in range(plan.M)])
     out["shape_proof_s"] = time.perf_counter() - t0 if proved else None
     if "lane_bytes" in memory:
         memory["lane_gb"] = memory["lane_bytes"] * gb

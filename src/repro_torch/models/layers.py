@@ -278,7 +278,10 @@ def attention(
     ``wk`` / ``wv`` (and rows of ``wo``) hold, and the output is its
     partial sum; ``q_rows`` keeps query rows ``start:stop`` against the
     whole K/V (the reference's ``ctx`` mode), which ``kv_proj`` gives
-    when the lanes projected it a share each."""
+    when the lanes projected it a share each.  Under ``cfg.seq_parallel``
+    a lane's ``x`` is its rows alone: ``positions`` are theirs, and
+    ``kv_positions`` those of the whole K/V of ``kv_proj`` (with ``kv``
+    None: self attention; any tensor: cross)."""
     H, K = heads if heads is not None else (cfg.n_heads, cfg.n_kv_heads)
     hd = cfg.hd
     xn = rms_norm(params["ln"], x, eps=cfg.norm_eps)
@@ -308,7 +311,7 @@ def attention(
 
     if kv is None:  # self-attention: rope on q (k is rotated above)
         q = rope(q, q_pos, theta=cfg.rope_theta)
-        k_pos = positions
+        k_pos = positions if kv_positions is None else kv_positions
     else:
         k_pos = kv_positions
 

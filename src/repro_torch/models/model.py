@@ -99,13 +99,17 @@ class Layout:
     step's layout (`distributed.partition`) has the same members:
 
     ``device``; ``stack_kw``, `run_stack`'s keywords beyond the model's;
-    ``leaf(name)``, a top-level leaf (``final_norm``, ``pos_embed``,
-    ``enc_norm``); ``stack(name, seq)``, the periods of stack ``name``
-    (``enc_stack`` or ``s{i}``) as `run_stack` takes them, ``seq`` its
-    query length; ``embed(tokens)``; ``xent(xf, window, labels)``, the
-    mean cross entropy of rows ``window`` of the head's logits of the
-    normed hidden states ``xf``; ``logits(xf)``, the head's logits;
-    ``final_norm(x)``, a decode step's final norm of its hidden state."""
+    ``leaf(name)``, a top-level leaf (``pos_embed``); ``stack(name,
+    seq)``, the periods of stack ``name`` (``enc_stack`` or ``s{i}``) as
+    `run_stack` takes them, ``seq`` its query length; ``embed(tokens)``;
+    ``split(x)``, a stack's input ``(B, S, d)`` as the pass holds its
+    hidden state between blocks (here: as it is; the partitioned step
+    under ``cfg.seq_parallel``: row blocks on the lanes); ``norm(name,
+    x)``, the RMS norm of a hidden state by the top-level scale ``name``
+    (``final_norm``, ``enc_norm``); ``xent(xf, window, labels)``, the mean
+    cross entropy of rows ``window`` of the head's logits of the normed
+    hidden states ``xf``; ``logits(xf)``, the head's logits; ``last(xf)``,
+    the last position of ``xf``."""
 
     stack_kw: dict = {}
 
@@ -129,8 +133,14 @@ class Layout:
         return unembed(self.p["embed"] if tied else self.p["lm_head"], xf,
                        cfg, tied=tied)
 
-    def final_norm(self, x):
-        return rms_norm(self.p["final_norm"], x, eps=self.cfg.norm_eps)
+    def split(self, x):
+        return x
+
+    def norm(self, name, x):
+        return rms_norm(self.p[name], x, eps=self.cfg.norm_eps)
+
+    def last(self, xf):
+        return xf[:, -1:]
 
     def xent(self, xf, window, labels):
         return softmax_xent(self.logits(xf)[:, window[0]:window[1], :],
@@ -209,7 +219,8 @@ class _Model(nn.Module):
                 caches=cache["stacks"][f"s{i}"], decode=True, **lay.stack_kw,
             )
             new_stacks[f"s{i}"] = nc
-        return lay.final_norm(x), {"stacks": new_stacks, "pos": cache["pos"] + 1}
+        return (lay.norm("final_norm", x),
+                {"stacks": new_stacks, "pos": cache["pos"] + 1})
 
     @torch.no_grad()
     def decode_step(self, cache, last_tokens, layout=Layout):
@@ -252,13 +263,14 @@ class LM(_Model):
             img = batch["image_embeds"].to(lay.device, cfg.compute_dtype)
             x = torch.cat([img, x], dim=1)
         S = x.shape[1]
+        x = lay.split(x)
         positions = torch.arange(S, device=lay.device)[None, :]
         aux = ZERO_AUX(lay.device)
         for i, st in enumerate(self.stack_specs):
             x, a, _ = run_stack(lay.stack(f"s{i}", S), x, st, cfg,
                                 positions=positions, **lay.stack_kw)
             aux = _acc_aux(aux, a)
-        return rms_norm(lay.leaf("final_norm"), x, eps=cfg.norm_eps), aux
+        return lay.norm("final_norm", x), aux
 
     def forward(self, batch):
         lay = Layout(self)
@@ -337,16 +349,17 @@ class EncDec(_Model):
         cfg = self.cfg
         x = frames.to(lay.device, cfg.compute_dtype) \
             + lay.leaf("pos_embed").to(cfg.compute_dtype)[None]
-        positions = torch.arange(x.shape[1], device=lay.device)[None, :]
-        x, _, _ = run_stack(lay.stack("enc_stack", x.shape[1]), x,
+        S = x.shape[1]
+        positions = torch.arange(S, device=lay.device)[None, :]
+        x, _, _ = run_stack(lay.stack("enc_stack", S), lay.split(x),
                             self.enc_spec, cfg, positions=positions,
                             **lay.stack_kw)
-        return rms_norm(lay.leaf("enc_norm"), x, eps=cfg.norm_eps)
+        return lay.norm("enc_norm", x)
 
     def _hidden(self, batch, lay):
         cfg = self.cfg
         enc_out = self.encode(lay, batch["enc_frames"])
-        x = lay.embed(batch["tokens"].to(lay.device))
+        x = lay.split(lay.embed(batch["tokens"].to(lay.device)))
         positions = torch.arange(x.shape[1], device=lay.device)[None, :]
         aux = ZERO_AUX(lay.device)
         for i, st in enumerate(self.stack_specs):
@@ -355,7 +368,7 @@ class EncDec(_Model):
                 positions=positions, enc_out=enc_out, **lay.stack_kw,
             )
             aux = _acc_aux(aux, a)
-        return rms_norm(lay.leaf("final_norm"), x, eps=cfg.norm_eps), aux
+        return lay.norm("final_norm", x), aux
 
     def forward(self, batch):
         lay = Layout(self)

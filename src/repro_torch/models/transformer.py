@@ -146,7 +146,10 @@ def run_stack(
     callable a period in ``params`` (it gathers the period's weights, so
     under remat they are gathered again in the recompute rather than
     kept), its own ``block_fn`` and a ``scope`` (a context manager
-    factory) that every period's run, recompute included, is held in."""
+    factory) that every period's run, recompute included, is held in;
+    under ``cfg.seq_parallel`` its ``x`` may be a hidden state held in row
+    blocks (`distributed.partition.RowBlocks`: ``parts``, ``like(parts)``,
+    ``device``), whose blocks are each checkpointed period's inputs."""
     remat = cfg.remat == "full" and not decode and torch.is_grad_enabled()
 
     def period(p, x, aux, cache):
@@ -173,7 +176,15 @@ def run_stack(
     new_caches = [] if decode else None
     for n in range(stack.n_periods):
         cache = caches[n] if decode else None
-        if remat:
+        if remat and not isinstance(x, torch.Tensor):
+            # a hidden state held in parts (`distributed.partition.RowBlocks`):
+            # its tensors are the checkpoint's inputs, each kept where it is
+            x, aux, ncs = checkpoint(
+                lambda p, aux, cache, *parts, x=x: period(
+                    p, x.like(parts), aux, cache),
+                params[n], aux, cache, *x.parts, use_reentrant=False,
+                preserve_rng_state=False)
+        elif remat:
             x, aux, ncs = checkpoint(period, params[n], x, aux, cache,
                                      use_reentrant=False,
                                      preserve_rng_state=False)

@@ -32,7 +32,10 @@ hints partition it (`distributed.partition`):
   hidden dim, experts, the vocabulary over ``model``), gathering a
   period's weights at a time over ``data`` inside the checkpointed
   period function, so under remat they are gathered again in the
-  recompute and no lane holds a replica (Mamba2 by head);
+  recompute and no lane holds a replica (Mamba2 by head); under
+  ``cfg.seq_parallel`` each model lane keeps its token rows between
+  blocks instead and gathers a period's weights whole
+  (`partition.RowBlocks`);
 * each group's gradient comes back a shard at a time, and gradients,
   loss and metrics are pooled over the data groups in lane order as the
   microbatch loop adds them (float32 zeros, add in order, x 1/D), each
@@ -503,7 +506,7 @@ def _sharded_prefill_step(model, mesh):
                                    for k, v in batch.items()}, home.device)
                 lay = plan.layout(model)
                 xf, _ = model._hidden(part, lay)
-                toks.append(lay.greedy(xf[:, -1:])[:, 0])
+                toks.append(lay.greedy(lay.last(xf))[:, 0])
             _home_waits(home)
         lane0 = mesh.lanes[0]
         out = torch.cat([t.to(lane0.device) for t in toks])

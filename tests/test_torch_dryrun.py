@@ -280,3 +280,29 @@ def _tensors(t, out):
             _tensors(v, out)
     elif not isinstance(t, int):
         out.append(t)
+
+
+def test_row_split_train_cell_counts_a_lanes_rows():
+    """``--set seq_parallel=true`` on a train cell (qwen2-0.5b on the
+    (16, 16) production mesh, 1,024 tokens, 2 rows a data group): the
+    plan names the row split; each lane keeps its rows of every period's
+    input (bfloat16), where without the setting home keeps them whole and
+    the other lanes none; the lane's saved activations fall by the other
+    rows, and its gathered weights rise (every period's MLP and the head
+    whole on every lane)."""
+    shape = ShapeSpec("train_1k", 1_024, 32, "train")
+    mesh = make_production_mesh(device="meta")
+    cfg = get_config("qwen2-0.5b")
+    rec = {sp: dryrun.plan_cell(cfg.scaled(seq_parallel=sp), shape, mesh)
+           for sp in (False, True)}
+    mem, unset = rec[True]["memory"], rec[False]["memory"]
+    assert mem["plan"] == "partitioned, token rows over model (seq_parallel)"
+    assert unset["plan"] == "partitioned"
+    M = mesh.shape["model"]
+    rows = 2 * (shape.seq_len // M) * cfg.d_model * 2
+    assert mem["input_bytes"] == [cfg.periods * rows] * M
+    assert unset["input_bytes"] == [cfg.periods * rows * M] + [0] * (M - 1)
+    drop = unset["saved_bytes"][0] - mem["saved_bytes"][0]
+    assert drop >= cfg.periods * rows * (M - 1) * 0.99
+    assert mem["activation_gb"] < unset["activation_gb"]
+    assert mem["gathered_gb"] > unset["gathered_gb"]

@@ -8,6 +8,13 @@ The reference runs with x64 off, as its launcher runs from the command
 line (the tests' conftest turns x64 on; the config is switched off
 process-wide for the run, so the batcher's server thread sees it too, and
 restored after).  Timings and batch counts are not compared.
+
+The telemetry test runs the launcher in a child interpreter.  In pytest's
+own process, with six processes of 8-thread torch work loading
+an 8-core host, the shifted stream's requests waited up to 1.1 s, over the
+0.5 s that the ``serve_p99_latency`` rule allows (5 failures in 22 loaded
+runs).  The launcher alone in its own interpreter stayed within 0.14 s
+under the same load, and the test in this form passed 6 loaded runs of 6.
 """
 import re
 import sys
@@ -77,23 +84,21 @@ def test_registry_rerun_extends_history(tmp_path, capsys):
     assert out["version"].version == 1
 
 
-def test_export_port_serves_metrics_healthz_and_varz(capsys):
-    """``--export-port 0``: /metrics, /healthz and /varz answer 200 on
-    127.0.0.1 while the launcher serves, the serving rules quiet; the K4
-    launch counter on /metrics after the run equals the projector's
-    launches (batches + 2 warm-ups), and the shifted stream's drift flag
-    leaves the exporter degraded (a warning, still 200)."""
-    import json
-    import re
-    import threading
-    import urllib.request
+# the launcher with --export-port 0 and a thread scraping /metrics, /healthz
+# and /varz every 0.05 s, in a child interpreter (argv[1]: the JSON file
+# it writes); what ended the scrapes, if anything did, is kept
+_EXPORT_CHILD = r"""
+import json, sys, threading, urllib.request
+from repro_torch.launch import serve_topics
+from repro_torch.obs import metrics
 
-    from repro_torch.obs import metrics
+rows, stop, box = [], threading.Event(), {}
 
-    rows, stop, box = [], threading.Event(), {}
 
-    def scrape(exp):
-        def loop():
+def scrape(exp):
+    def loop():
+        path = None
+        try:
             while not stop.is_set():
                 row = {}
                 for path in ("/metrics", "/healthz", "/varz"):
@@ -103,40 +108,79 @@ def test_export_port_serves_metrics_healthz_and_varz(capsys):
                         row[path] = (r.status, r.read().decode())
                 rows.append(row)
                 stop.wait(0.05)
+        except BaseException as e:  # what ended the scrapes, reported
+            body = e.read().decode() if hasattr(e, "read") else None
+            box["ended"] = {"error": repr(e), "path": path,
+                            "status": getattr(e, "code", None),
+                            "body": body, "scrapes": len(rows),
+                            "healthz": exp.health().describe()}
 
-        t = threading.Thread(target=loop, daemon=True)
-        orig_stop = exp.stop
+    t = threading.Thread(target=loop, daemon=True)
+    orig_stop = exp.stop
 
-        def stop_scraper_first():
-            stop.set()
-            t.join(timeout=30)
-            orig_stop()
+    def stop_scraper_first():
+        stop.set()
+        t.join(timeout=30)
+        orig_stop()
 
-        exp.stop = stop_scraper_first
-        box["exp"] = exp
-        t.start()
+    exp.stop = stop_scraper_first
+    box["exp"] = exp
+    t.start()
 
-    with metrics.use_registry():
-        out = serve_topics.main(["--smoke", "--device", "cpu", "--docs",
-                                 "800", "--words", "600", "--components", "1",
-                                 "--queries", "1000", "--export-port", "0",
-                                 "--export-interval", "0.05"],
-                                on_exporter=scrape)
-    exp = box["exp"]
-    assert rows and exp.port is None
+
+with metrics.use_registry():
+    out = serve_topics.main(["--smoke", "--device", "cpu", "--docs", "800",
+                             "--words", "600", "--components", "1",
+                             "--queries", "1000", "--export-port", "0",
+                             "--export-interval", "0.05"],
+                            on_exporter=scrape)
+exp = box["exp"]
+health = exp.health()
+with open(sys.argv[1], "w") as f:
+    json.dump({"rows": rows, "ended": box.get("ended"), "port": exp.port,
+               "text": exp.prometheus_text(),
+               "launches": sum(out["batches"]) + out["warmups"],
+               "status": health.http_status,
+               "firing": [x.rule for x in health.firing]}, f)
+"""
+
+
+def test_export_port_serves_metrics_healthz_and_varz(tmp_path):
+    """``--export-port 0``: /metrics, /healthz and /varz answer 200 on
+    127.0.0.1 while the launcher serves, the serving rules quiet; the K4
+    launch counter on /metrics after the run equals the projector's
+    launches (batches + 2 warm-ups), and the shifted stream's drift flag
+    leaves the exporter degraded (a warning, still 200).
+
+    The launcher runs in a child interpreter, as it runs from the command
+    line: in pytest's own process, on a loaded host, its
+    requests' wall latencies passed the p99 rule's 0.5 s (see the module
+    note)."""
+    import json
+    import subprocess
+
+    got = tmp_path / "export.json"
+    run = subprocess.run([sys.executable, "-c", _EXPORT_CHILD, str(got)],
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    res = json.loads(got.read_text())
+    rows, ended = res["rows"], res["ended"]
+    assert rows and res["port"] is None, ended
+    assert ended is None, ended
     assert all(r[p][0] == 200 for r in rows for p in r)
     serving = {"serve_p99_latency", "serve_shed_burst", "serve_timeout_burst"}
     for r in rows:
-        fired = {f["rule"] for f in json.loads(r["/healthz"][1])["firing"]}
-        assert not fired & serving, fired
+        firing = json.loads(r["/healthz"][1])["firing"]
+        fired = {f["rule"] for f in firing}
+        assert not fired & serving, firing
     varz = json.loads(rows[-1]["/varz"][1])
     assert varz["labels"] == {"run": "serve_topics"}
-    text = exp.prometheus_text()
-    m = re.search(r"^kernel_launches_sparse_project_total (\d+)$", text, re.M)
-    assert int(m.group(1)) == sum(out["batches"]) + out["warmups"]
-    assert exp.health().http_status == 200
-    assert "serve_drift" in {f.rule for f in exp.health().firing}
-    assert "health: degraded" in capsys.readouterr().out
+    m = re.search(r"^kernel_launches_sparse_project_total (\d+)$",
+                  res["text"], re.M)
+    assert int(m.group(1)) == res["launches"]
+    assert res["status"] == 200
+    assert "serve_drift" in res["firing"]
+    assert "health: degraded" in run.stdout
 
 
 def test_trace_and_metrics_outputs(tmp_path, capsys):

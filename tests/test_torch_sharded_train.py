@@ -267,7 +267,20 @@ def test_no_lane_holds_a_replica(shape, monkeypatch):
     """4 layers (4 periods, remat per period): each lane's live gathered
     weights against two periods' leaves for it plus the top-level leaves
     it takes, and every gradient the step takes against its shard."""
-    cfg = ModelConfig(**{**CFG, "n_layers": 4})
+    _no_replica(shape, monkeypatch, seq_parallel=False)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (2, 4)], ids=["2x2", "2x4"])
+def test_no_lane_holds_a_replica_with_row_blocks(shape, monkeypatch):
+    """As above under ``cfg.seq_parallel``, where every lane gathers a
+    period's leaves whole and the head and final norm whole (its rows'
+    logits over the whole vocabulary), home the embedding whole (the
+    lookup): still at most two periods at once, under a replica."""
+    _no_replica(shape, monkeypatch, seq_parallel=True)
+
+
+def _no_replica(shape, monkeypatch, seq_parallel):
+    cfg = ModelConfig(**{**CFG, "n_layers": 4, "seq_parallel": seq_parallel})
     m = build_model(cfg, device="cpu")
     mesh = tmesh.make_dev_mesh(shape, ("data", "model"), device="cpu")
     with sh.use_mesh(mesh):
@@ -288,6 +301,7 @@ def test_no_lane_holds_a_replica(shape, monkeypatch):
         state, _ = step(init_state(m), {"tokens": toks})
     M = shape[1]
     slice_axes, whole_axes = ("data",), ("data", "model")
+    rows = seq_parallel and M > 1     # every product on whole weights
     ctx = cfg.n_kv_heads % M != 0     # attention on whole weights
 
     def nbytes(s, lane, axes):
@@ -300,17 +314,31 @@ def test_no_lane_holds_a_replica(shape, monkeypatch):
 
         def period(p):
             return sum(
-                nbytes(s, lane, whole_axes if ctx and name == "mixer_attn"
-                       else slice_axes)
+                nbytes(s, lane, whole_axes if rows or ctx
+                       and name == "mixer_attn" else slice_axes)
                 for name, block in p["b0"].items() for s in block.values())
 
         one = max(period(p) for p in periods)
-        top = sum(nbytes(state.params[k], lane, slice_axes)
-                  for k in ("embed", "lm_head"))
-        if m_coord == 0:
+        # the leaves alive while every period runs: all the top-level
+        # ones, or, gathered at their first use in row blocks, home's
+        # embedding (the head is gathered after the periods' forward and
+        # freed before their recompute)
+        if rows:
+            top = sum(nbytes(state.params[k], lane, whole_axes)
+                      for k in ("lm_head", "final_norm"))
+            held = 0
+            if m_coord == 0:
+                held = nbytes(state.params["embed"], lane, whole_axes)
+                top += held
+        else:
+            top = sum(nbytes(state.params[k], lane, slice_axes)
+                      for k in ("embed", "lm_head"))
+        if m_coord == 0 and not rows:
             top += nbytes(state.params["final_norm"], lane, whole_axes)
+        if not rows:
+            held = top
         everything = sum(period(p) for p in periods) + top
-        assert one + top <= tally.high[lane] <= 2 * one + top < everything, \
+        assert one + held <= tally.high[lane] <= 2 * one + top < everything, \
             (lane, tally.high[lane], one, top)
         assert tally.live[lane] == 0
     assert len(grads) == shape[0]
@@ -326,7 +354,19 @@ def test_plan_counts_bound_the_tally(shape):
     loss and gradients (4 layers, remat per period): the same gathers and
     bytes, and a lane's live high-water between one and two periods'
     bytes above its top-level leaves'."""
-    cfg = ModelConfig(**{**CFG, "n_layers": 4})
+    _plan_counts(shape, seq_parallel=False)
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (1, 4)], ids=["1x2", "1x4"])
+def test_plan_counts_bound_the_tally_with_row_blocks(shape):
+    """As above under ``cfg.seq_parallel`` (whole periods, the top-level
+    leaves gathered at their first use, so the high-water is bounded
+    below by the periods alone)."""
+    _plan_counts(shape, seq_parallel=True)
+
+
+def _plan_counts(shape, seq_parallel):
+    cfg = ModelConfig(**{**CFG, "n_layers": 4, "seq_parallel": seq_parallel})
     m = build_model(cfg, device="cpu")
     mesh = tmesh.make_dev_mesh(shape, ("data", "model"), device="cpu")
     with sh.use_mesh(mesh):
@@ -346,7 +386,10 @@ def test_plan_counts_bound_the_tally(shape):
         assert plan.gathers[k] == tally.calls[lane] > 0
         assert plan.gathered[k] == tally.total[lane]
         top, one = plan.top_bytes[k], plan.period_bytes[k]
-        assert 0 < one and top + one <= tally.high[lane] <= top + 2 * one, \
+        # in row blocks the head is gathered after the periods' forward
+        # and freed before their recompute
+        held = 0 if seq_parallel else top
+        assert 0 < one and held + one <= tally.high[lane] <= top + 2 * one, \
             (lane, tally.high[lane], top, one)
 
 
